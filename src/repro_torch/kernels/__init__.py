@@ -1,0 +1,22 @@
+"""Hand-written Hopper kernels of the port and their plain PyTorch versions.
+
+Each kernel module (``flash_attention``, ``decode_attention``,
+``fused_ffn``) holds a wrapper that launches the CUDA kernel built from
+``repro_torch/csrc`` for a CUDA tensor, and the kernel's plain PyTorch
+version, which the wrapper takes only for a CPU tensor. ``ops`` adapts the
+model's layouts to the kernels'; ``ref`` holds the JAX package's oracles.
+
+``LAUNCHES`` counts kernel launches per kernel name: each wrapper adds one
+where it launches its kernel, and nowhere else, so a run can show that its
+main path went through the kernels.
+"""
+from __future__ import annotations
+
+import collections
+
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    LAUNCHES.clear()

@@ -1,0 +1,69 @@
+"""Model-facing wrappers around the kernels: layout adapters and dispatch.
+
+Counterpart of ``repro/kernels/ops.py``. The adapters translate the model
+layouts (``[B, S, nh, hd]``, the stacked cache's ``[B, C, nkv, hd]``) into
+the kernels' layouts as strided views, so no operand is copied.
+
+Dispatch: the kernel modules take the plain version for a CPU tensor and
+launch the Hopper kernel for a CUDA tensor, or raise. ``force_ref=True``
+bypasses both and runs the JAX package's oracle (``ref``); only tests and
+``chip_smoke.py`` pass it.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from .decode_attention import decode_attention as _decode
+from .flash_attention import flash_attention as _flash
+from .fused_ffn import fused_ffn as _ffn
+
+Tensor = torch.Tensor
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    window: int | None = None,
+                    force_ref: bool = False) -> Tensor:
+    """Model layout: q [B,S,nh,hd]; k,v [B,S,nkv,hd] -> [B,S,nh,hd]."""
+    B, S, nh, hd = q.shape
+    nkv = k.shape[2]
+    G = nh // nkv
+    if force_ref:
+        qf = q.reshape(B, S, nkv, G, hd).permute(0, 2, 3, 1, 4) \
+            .reshape(B * nkv * G, S, hd)
+        kf = k.permute(0, 2, 1, 3)[:, :, None].expand(B, nkv, G, S, hd) \
+            .reshape(B * nkv * G, S, hd)
+        vf = v.permute(0, 2, 1, 3)[:, :, None].expand(B, nkv, G, S, hd) \
+            .reshape(B * nkv * G, S, hd)
+        out = ref.flash_attention_ref(qf, kf, vf, causal=causal,
+                                      window=window)
+        return out.reshape(B, nkv, G, S, hd).permute(0, 3, 1, 2, 4) \
+            .reshape(B, S, nh, hd)
+    qk = q.reshape(B, S, nkv, G, hd).permute(0, 2, 3, 1, 4)
+    out = _flash(qk, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+                 causal=causal, window=window)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, nh, hd)
+
+
+def decode_attention(q: Tensor, k: Tensor, v: Tensor, valid: Tensor, *,
+                     force_ref: bool = False) -> Tensor:
+    """q [B,1,nh,hd]; k,v [B,C,nkv,hd]; valid [B,C] -> [B,1,nh,hd]."""
+    B, _, nh, hd = q.shape
+    C, nkv = k.shape[1], k.shape[2]
+    G = nh // nkv
+    if force_ref:
+        kk = k.permute(0, 2, 1, 3).reshape(B * nkv, C, hd)
+        vv = v.permute(0, 2, 1, 3).reshape(B * nkv, C, hd)
+        vd = valid[:, None, :].expand(B, nkv, C).reshape(B * nkv, C)
+        out = ref.decode_attention_ref(q.reshape(B * nkv, G, hd), kk, vv, vd)
+        return out.reshape(B, 1, nh, hd)
+    out = _decode(q.reshape(B, nkv, G, hd), k.permute(0, 2, 1, 3),
+                  v.permute(0, 2, 1, 3), valid.contiguous())
+    return out.reshape(B, 1, nh, hd)
+
+
+def fused_ffn(x, wg, wu, wd, *, force_ref: bool = False) -> Tensor:
+    """x [E,T,d]; wg,wu [E,d,f]; wd [E,f,d] -> [E,T,d]."""
+    if force_ref:
+        return ref.fused_ffn_ref(x, wg, wu, wd)
+    return _ffn(x, wg, wu, wd)

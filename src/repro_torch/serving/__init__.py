@@ -1,0 +1,10 @@
+"""Serving runtime: allocator-driven FIFO LLM server with budget enforcement."""
+from .engine import DecodeEngine
+from .metrics import ServingReport, empty_report, percentile_summary, summarize
+from .request import CompletedRequest, Phase, Request
+from .scheduler import Scheduler
+from .server import LLMServer, ServerConfig, timecall
+
+__all__ = ["DecodeEngine", "LLMServer", "ServerConfig", "Scheduler",
+           "Request", "CompletedRequest", "Phase", "ServingReport",
+           "summarize", "empty_report", "percentile_summary", "timecall"]
