@@ -9,23 +9,45 @@ Phases, in order; any failure ends the run with a non-zero exit:
 2. the build: every CUDA source in src/repro_torch/csrc, one nvcc each,
    all started together;
 3. kernels: each Hopper kernel against its plain PyTorch version on the
-   card at the serving path's shapes (bf16 and f32, ragged S, T = 1), with
-   the maximum error beside its tolerance, the kernel's median time (CUDA
-   events around one call, L2 flushed before it, the host's enqueue hidden
-   behind a spin kernel), the plain version's time, one
-   PyTorch library call's time where one computes the same function, and
-   the bound (the larger of bytes at 3.35 TB/s and FLOPs at the card's
-   peak for the dtype);
+   card at the serving paths' shapes (bf16 and f32, ragged S, T = 1,
+   8 slots at ragged positions, over the dense slot cache and over a
+   shuffled block pool), with the maximum error beside its tolerance (for
+   bf16 decode, per slot, in ulps of the slot's outputs), the kernel's
+   median time (CUDA events
+   around one call, L2 flushed before it, the host's enqueue hidden behind
+   a spin kernel), the plain version's time, the time of the PyTorch
+   library calls that compute the same function where there are such (for
+   paged attention: the dense gather plus SDPA, two calls), and the bound
+   (the larger of bytes at 3.35 TB/s and FLOPs at the card's peak for the
+   dtype);
 4. model: full-width qwen3-0.6b in f32 (random weights from seed 0), one
    prompt, prefill plus 8 greedy decode steps, kernels against the
    reference path (force_ref);
-5. serve: full-width qwen3-0.6b in bf16 through LLMServer (virtual clock,
+5. paged model: the same f32 model; two ragged prompts admitted by a
+   paged ContinuousBatchingEngine (batched prefill, insert into the block
+   pool), then 8 paged decode steps with the kernels against force_ref;
+6. serve: full-width qwen3-0.6b in bf16 through LLMServer (virtual clock,
    real tokens) with DecodeEngine(cache_capacity=2048, chunk=16) on
    paper_problem(lam=0.1, alpha=30) and an 8-query stream (seed 0):
    exact budget enforcement, the report, prefill/decode wall seconds and
    each kernel's launch count on this run (a kernel launched 0 times
    fails); then one profiled stretch of decode steps: host wall time per
-   step against the device time of its kernels.
+   step against the device time of its kernels;
+7. continuous serve: the same stream through LLMServer(batch_size=8) with
+   ContinuousBatchingEngine(paged=True, max_slots=8, capacity=2048,
+   block_size=16, chunk=16): exact budgets, the report with its KV
+   occupancy, launch counts (paged decode attention must run);
+8. rolling drain: all 8 requests offered to the paged engine at once
+   against a 64-block pool (1024 tokens, below the 1590 they need), so
+   admission is back-pressured; block invariants and the free list
+   checked after the drain; the same drain in slot mode (one admission),
+   and again in slot mode offered the paged drain's admission groups at
+   its chunks. Each drain must launch its decode kernel (paged or slot)
+   and not the other. How many requests' bf16 tokens agree between the
+   paged drain and each slot drain is reported, not asserted: a greedy
+   argmax on random weights can flip on a summation order (other groups
+   prefill at other padded shapes); phase 5 is the check. Then one
+   profiled chunk of decode at 8 live slots in paged and slot mode.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -58,6 +80,14 @@ TOL_REASON = {
     torch.float32: "the repo's f32 kernel tolerance; only the f32 "
                    "summation order differs",
 }
+DECODE_BF16_ULPS = 2
+DECODE_BF16_REASON = (
+    "bf16 decode, per slot: 2 bf16 ulps of the slot's largest |out| (at "
+    "most 2e-2); kernel and plain round p and out at the same points and "
+    "differ in f32 summation order and in the running max p is rounded "
+    "against, which moves out by under one ulp plus its final rounding")
+# ragged per-slot positions of the 8-slot decode cases (paged and slot)
+POS = (17, 45, 100, 300, 600, 1100, 1500, 2000)
 FFN_F32_TOL = 1e-4
 FFN_F32_REASON = ("f32 sums over d = 1024 and d_ff = 3072 terms taken in "
                   "another order than torch.matmul's")
@@ -65,8 +95,9 @@ LOGIT_TOL = 1e-3
 LOGIT_REASON = ("f32 end to end; kernels and reference sum in other orders "
                 "and the difference compounds over 28 layers; 1e-3 is about "
                 "0.1% of the logits' scale")
-# the serving path's shapes at qwen3-0.6b's widths (batch_size 1)
+# the serving paths' shapes at qwen3-0.6b's widths
 H, G, HD, D, DFF = 8, 2, 128, 1024, 3072
+
 
 
 class SmokeFailure(RuntimeError):
@@ -114,6 +145,20 @@ def compare(got, want, atol, rtol) -> tuple:
     return float(diff.max()), ok
 
 
+def slot_bf16_ulp(want: torch.Tensor) -> torch.Tensor:
+    """[B]: one bf16 ulp (2^(e - 7) for a value in [2^e, 2^(e+1))) of the
+    largest |out| of each slot of a decode output [B, ...]."""
+    m = want.float().abs().flatten(1).amax(1).clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+def decode_bf16_tol(want: torch.Tensor) -> torch.Tensor:
+    """Per-slot absolute tolerance [B] of a bf16 decode output:
+    DECODE_BF16_ULPS ulps of the slot's largest |out|, at most 2e-2."""
+    return (DECODE_BF16_ULPS * slot_bf16_ulp(want)).clamp_max(
+        TOL[torch.bfloat16])
+
+
 def kernel_cases(dev, flush):
     """Every kernel against its plain version at the serving path's shapes.
     Returns (rows, {kernel: row of the JSON summary})."""
@@ -130,14 +175,26 @@ def kernel_cases(dev, flush):
                 * scale).to(dtype)
 
     def record(name, case, dtype, got, want, tol, reason, fn, plain, lib,
-               nbytes, flops, main):
-        err, ok = compare(got, want, tol, tol)
+               nbytes, flops, main, library="one call"):
+        per_slot = {}
+        if isinstance(tol, torch.Tensor):            # one tolerance per slot
+            err, ok = compare(got, want,
+                              tol.view((-1,) + (1,) * (want.dim() - 1)), 0.0)
+            slot_err = (got.float() - want.float()).abs().flatten(1).amax(1)
+            per_slot = {
+                "slot_max_abs_out": want.float().abs().flatten(1).amax(1)
+                .tolist(),
+                "slot_err_ulps": (slot_err / slot_bf16_ulp(want)).tolist()}
+            tol = tol.tolist()
+        else:
+            err, ok = compare(got, want, tol, tol)
         bms, by = bound(nbytes, flops, dtype)
         row = {"name": name, "case": case, "dtype": str(dtype)[6:],
                "max_abs_err": err, "tol": tol, "tol_reason": reason,
-               "ok": ok, "ms": median_ms(fn, flush),
+               **per_slot, "ok": ok, "ms": median_ms(fn, flush),
                "plain_ms": median_ms(plain, flush),
                "library_ms": None if lib is None else median_ms(lib, flush),
+               "library": None if lib is None else library,
                "bound_ms": bms, "bound_by": by}
         print(json.dumps(row))
         rows.append(row)
@@ -172,10 +229,13 @@ def kernel_cases(dev, flush):
                                                       attn_mask=mask),
                nbytes, flops, main=(dtype == torch.bfloat16 and S == 128))
 
-    # -- 2. slot decode attention over the stacked cache's [B,C,nkv,hd]
+    # -- 2. slot decode attention over the stacked cache's [B,C,nkv,hd]:
+    # batch 1 (DecodeEngine) and the continuous engine's 8 slot rows at
+    # ragged positions, each with its own valid row
     C = 2048
     for dtype, B, n_valid in ((torch.bfloat16, 1, (17,)),
                               (torch.bfloat16, 1, (300,)),
+                              (torch.bfloat16, 8, tuple(p + 1 for p in POS)),
                               (torch.float32, 1, (300,)),
                               (torch.float32, 2, (45, 1500))):
         q = randn(B, H, G, HD, dtype=dtype)
@@ -195,9 +255,12 @@ def kernel_cases(dev, flush):
         rows_read = sum(n_valid)
         nbytes = (2 * B * H * G * HD + 2 * rows_read * H * HD) * el + B * C
         flops = 4 * rows_read * H * G * HD
+        tol, reason = ((decode_bf16_tol(want), DECODE_BF16_REASON)
+                       if dtype == torch.bfloat16
+                       else (TOL[dtype], TOL_REASON[dtype]))
         record("decode_attention",
                f"B={B} C={C} valid={list(n_valid)} H={H} G={G} hd={HD}",
-               dtype, got, want, TOL[dtype], TOL_REASON[dtype],
+               dtype, got, want, tol, reason,
                lambda: da(q, k, v, valid),
                lambda: decode_attention.decode_attention_plain(q, k, v,
                                                                valid),
@@ -206,7 +269,61 @@ def kernel_cases(dev, flush):
                nbytes, flops,
                main=(dtype == torch.bfloat16 and n_valid == (300,)))
 
-    # -- 3. fused SwiGLU FFN, E = 1: T = 1 at decode, T = S at prefill
+    # -- 3. paged decode attention over one layer of the engine's pool:
+    # 8 slots of a 2048-token table (bs 16, n_bt 128) over P = 1024 blocks
+    # (the engine's default pool at 8 slots), ragged positions, tables
+    # drawn from a shuffled pool with sentinels past each slot's last block
+    P, bs, n_bt = 1024, 16, 128
+    pos_list = POS
+    B = len(pos_list)
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(0))
+    tables = torch.full((B, n_bt), P, dtype=torch.int32)
+    used = 0
+    for b, p in enumerate(pos_list):
+        n = p // bs + 1
+        tables[b, :n] = perm[used:used + n]
+        used += n
+    tables = tables.to(dev)
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+    slots = torch.arange(n_bt * bs, device=dev)
+    lmask = ((slots[None] <= pos[:, None])
+             & (tables < P).repeat_interleave(bs, dim=1))[:, None, None, :]
+    gather = tables.long().clamp(max=P - 1)
+    pda = decode_attention.paged_decode_attention
+    pda_plain = decode_attention.paged_decode_attention_plain
+    for dtype in (torch.bfloat16, torch.float32):
+        q = randn(B, H, G, HD, dtype=dtype)
+        # one layer of the engine's [L, P + 1, bs, nkv, hd] pools, as the
+        # model passes it: a view without the trash block
+        pool = randn(2, P + 1, bs, H, HD, dtype=dtype)
+        kp, vp = pool[0, :P], pool[1, :P]
+        got = pda(q, kp, vp, tables, pos)
+        want = pda_plain(q, kp, vp, tables, pos)
+        ql = q.reshape(B, H * G, 1, HD)
+
+        def library(q=ql, kp=kp, vp=vp):
+            kd = kp[gather].reshape(B, n_bt * bs, H, HD).transpose(1, 2)
+            vd = vp[gather].reshape(B, n_bt * bs, H, HD).transpose(1, 2)
+            return F.scaled_dot_product_attention(q, kd, vd, attn_mask=lmask,
+                                                  enable_gqa=True)
+        el = q.element_size()
+        rows_read = sum(p + 1 for p in pos_list)
+        nbytes = ((2 * B * H * G * HD + 2 * rows_read * H * HD) * el
+                  + tables.numel() * 4 + B * 4)
+        flops = 4 * rows_read * H * G * HD
+        tol, reason = ((decode_bf16_tol(want), DECODE_BF16_REASON)
+                       if dtype == torch.bfloat16
+                       else (TOL[dtype], TOL_REASON[dtype]))
+        record("paged_decode_attention",
+               f"B={B} P={P} bs={bs} n_bt={n_bt} pos={list(pos_list)} "
+               f"H={H} G={G} hd={HD}", dtype, got, want, tol, reason,
+               lambda: pda(q, kp, vp, tables, pos),
+               lambda: pda_plain(q, kp, vp, tables, pos), library,
+               nbytes, flops, main=(dtype == torch.bfloat16),
+               library="two calls: the k/v gather through the block table "
+                       "(index) and scaled_dot_product_attention")
+
+    # -- 4. fused SwiGLU FFN, E = 1: T = 1 at decode, T = S at prefill
     for dtype, T in ((torch.bfloat16, 1), (torch.bfloat16, 37),
                      (torch.bfloat16, 128), (torch.float32, 1),
                      (torch.float32, 128)):
@@ -230,14 +347,11 @@ def kernel_cases(dev, flush):
     return rows, summary
 
 
-def model_phase(dev) -> dict:
+def model_phase(dev, cfg, params) -> dict:
     """Full-width f32 qwen3-0.6b: kernels against force_ref, teacher-forced
     on the reference's greedy tokens."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import decode_step, forward, init_params
+    from repro_torch.models import decode_step, forward
 
-    cfg = dataclasses.replace(get_config("qwen3-0.6b"), dtype="float32")
-    params = init_params(cfg, seed=0, device=dev)
     prompt = torch.as_tensor(np.arange(37) % 97 + 1, device=dev)[None]
     ref = forward(cfg, params, prompt, return_cache=True, cache_capacity=64,
                   force_ref=True)
@@ -262,8 +376,58 @@ def model_phase(dev) -> dict:
            "greedy_tokens_agree": agree}
     print(json.dumps(out))
     check(err <= LOGIT_TOL, f"model logits err {err} > {LOGIT_TOL}")
-    del params
-    torch.cuda.empty_cache()
+    return out
+
+
+def paged_model_phase(dev, cfg, params) -> dict:
+    """Full-width f32 qwen3-0.6b on the paged path: two ragged prompts
+    admitted by a paged engine (batched prefill, insert into the pool),
+    then 8 paged decode steps, kernels against force_ref, teacher-forced
+    on the reference's greedy tokens."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import decode_step
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    steps = 8
+    eng = ContinuousBatchingEngine(cfg, params, max_slots=2, capacity=256,
+                                   paged=True, block_size=16, n_blocks=32)
+    prompts = [np.arange(37) % 97 + 1, np.arange(20) % 89 + 3]
+    check(all(eng.admit_many([(0, prompts[0], 64, 8),
+                              (1, prompts[1], 64, 8)])), "admission refused")
+    # This phase runs decode_step itself, to hold the kernel path's logits
+    # against force_ref's, so it makes the two calls step_chunk makes at a
+    # chunk boundary: blocks for the next `steps` writes, then the table
+    # copied to the device. The engine has no public call for them.
+    eng._ensure_blocks(steps)
+    eng._sync_tables()
+    ck = eng.cache["layers"]
+    cr = ck._replace(k=ck.k.clone(), v=ck.v.clone())
+    tok = torch.tensor([[s.last_token] for s in eng.slots], device=dev)
+    err = scale = 0.0
+    agree, tokens = True, []
+    reset_launches()
+    for _ in range(steps):
+        r = decode_step(cfg, params, tok, {"layers": cr}, force_ref=True)
+        k = decode_step(cfg, params, tok, {"layers": ck})
+        err = max(err, float((r.logits - k.logits).abs().max()))
+        scale = max(scale, float(r.logits.abs().max()))
+        tok = r.logits[:, -1:].argmax(-1)
+        agree &= bool(torch.equal(k.logits[:, -1:].argmax(-1), tok))
+        tokens.append(tok[:, 0].tolist())
+        cr, ck = r.cache["layers"], k.cache["layers"]
+    launches = LAUNCHES["paged_decode_attention"]
+    out = {"phase": "paged_model", "arch": cfg.arch_id, "dtype": "float32",
+           "prompt_lens": [len(p) for p in prompts], "block_size": 16,
+           "block_tables": ck.block_tables[:, :4].tolist(),
+           "decode_steps": steps, "logits_max_abs_err": err,
+           "logits_max_abs": scale, "tol": LOGIT_TOL,
+           "tol_reason": LOGIT_REASON, "greedy_tokens_agree": agree,
+           "greedy_tokens": tokens, "paged_launches": launches}
+    print(json.dumps(out))
+    check(err <= LOGIT_TOL, f"paged model logits err {err} > {LOGIT_TOL}")
+    check(launches == steps * cfg.n_layers,
+          f"paged_decode_attention launched {launches} times in {steps} "
+          f"steps of {cfg.n_layers} layers")
     return out
 
 
@@ -337,23 +501,35 @@ def decode_step_breakdown(engine, prefill, steps: int = 16) -> dict:
     """Where a full-width decode step's time goes: host wall time per step
     (synchronised) against the device time of the kernels the profiler
     saw, at position ~100 of a 2048-slot cache."""
+    logits, cache = prefill(np.arange(96, dtype=np.int32)[None] % 97 + 1)
+    state = {"token": logits.argmax(-1), "cache": cache}
+
+    def step():
+        state["token"], state["cache"] = engine._step(
+            state["token"], state["cache"], None)
+    for _ in range(4):                               # warm
+        step()
+    return {"phase": "decode_step_breakdown",
+            **profile_steps(step, steps, steps)}
+
+
+def profile_steps(run, n_calls: int, steps: int) -> dict:
+    """Host wall time per decode step of ``run`` (called ``n_calls`` times,
+    ``steps`` decode steps in all, synchronised) against the device time
+    of the kernels the profiler saw in a second, profiled run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    logits, cache = prefill(np.arange(96, dtype=np.int32)[None] % 97 + 1)
-    token = logits.argmax(-1)
-    for _ in range(4):                               # warm
-        token, cache = engine._step(token, cache, None)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(steps):
-        token, cache = engine._step(token, cache, None)
+    for _ in range(n_calls):
+        run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            token, cache = engine._step(token, cache, None)
+        for _ in range(n_calls):
+            run()
         torch.cuda.synchronize()
     per_kernel = {}
     for ev in prof.key_averages():
@@ -365,11 +541,167 @@ def decode_step_breakdown(engine, prefill, steps: int = 16) -> dict:
             per_kernel[ev.key] = us / 1e3 / steps
     device_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    return {"phase": "decode_step_breakdown", "steps": steps,
-            "wall_ms_per_step": wall_ms,
+    return {"steps": steps, "wall_ms_per_step": wall_ms,
             "device_ms_per_step": device_ms,
             "device_busy_share": device_ms / wall_ms,
             "top_device_ms_per_step": {k[:80]: v for k, v in top}}
+
+
+def continuous_serve_phase(dev, cfg, params) -> dict:
+    """The continuous path: allocator -> scheduler -> LLMServer(batch_size
+    8) -> paged ContinuousBatchingEngine, on the serve phase's stream."""
+    from repro_torch.core import paper_problem
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.queueing_sim import generate_stream
+    from repro_torch.serving import (ContinuousBatchingEngine, LLMServer,
+                                     ServerConfig)
+
+    engine = ContinuousBatchingEngine(cfg, params, max_slots=8,
+                                      capacity=2048, chunk=16, paged=True,
+                                      block_size=16)
+    engine.admit(-1, np.ones(16, np.int64), 4, 0)          # warm
+    while engine.n_active:
+        engine.step_chunk()
+    prob = paper_problem(lam=0.1, alpha=30.0)
+    stream = generate_stream(prob.tasks, 0.1, 8, seed=0)
+    srv = LLMServer(prob, ServerConfig(generate_tokens=True, batch_size=8),
+                    engine=engine)
+    reset_launches()
+    t0 = time.perf_counter()
+    rep = srv.run(stream)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    extra = srv.cfg.max_extra_tokens
+    for c in srv.completed:
+        check(c.n_tokens == c.budget + extra,
+              f"request {c.rid}: {c.n_tokens} tokens for budget "
+              f"{c.budget} + {extra}")
+    check(rep.n == 8, f"served {rep.n} of 8 requests")
+    steps = launches.get("paged_decode_attention", 0) // cfg.n_layers
+    out = {"phase": "continuous_serve", "arch": cfg.arch_id,
+           "dtype": cfg.dtype, "engine": "ContinuousBatchingEngine("
+           "paged=True, max_slots=8, capacity=2048, block_size=16, "
+           "chunk=16)", "batch_size": 8,
+           "report": dataclasses.asdict(rep),
+           "budgets_enforced_exactly": True, "wall_s": wall,
+           "decode_steps": steps,
+           "tokens_per_s": rep.tokens_generated / wall,
+           "launches": launches}
+    print(json.dumps(out))
+    for name in REPLACES:
+        if name != "decode_attention":          # the slot kernel
+            check(launches.get(name, 0) > 0,
+                  f"{name} was launched 0 times on the continuous path")
+    out["budgets"] = {c.rid: c.budget for c in srv.completed}
+    out["stream"] = stream
+    return out
+
+
+def rolling_drain_phase(dev, cfg, params, served, n_blocks: int = 64) -> dict:
+    """All 8 requests offered at once to a paged engine whose pool holds
+    fewer tokens than they need (back-pressure); the same drain in slot
+    mode, which admits them all at once; and the slot drain again, offered
+    the paged drain's admission groups at the paged drain's chunks, so the
+    two modes differ only in their attention kernel. Each drain's kernel
+    launches are counted. Then a profiled chunk at 8 live slots in paged
+    and slot mode."""
+    import math
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    budgets = served["budgets"]
+    reqs = [(q.qid, np.arange(q.prompt_len) % 97 + 1, budgets[q.qid], 8)
+            for q in served["stream"].queries]
+    need = [r[1].size + r[2] + r[3] - 1 for r in reqs]
+    out = {"phase": "rolling_drain", "requests": len(reqs),
+           "tokens_needed": sum(need),
+           "blocks_needed": sum(math.ceil(n / 16) for n in need),
+           "pool_blocks": n_blocks, "pool_tokens": n_blocks * 16}
+    tokens, groups = {}, {}          # groups: chunk -> rids admitted there
+    for mode in ("paged", "slot", "slot_paged_groups"):
+        paged = mode == "paged"
+        eng = ContinuousBatchingEngine(
+            cfg, params, max_slots=8, capacity=2048, chunk=16, paged=paged,
+            block_size=16, n_blocks=n_blocks)
+        pending, done, refused, chunks, peak = list(reqs), {}, [], 0, 0
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        while pending or eng.n_active:
+            offer = pending
+            if mode == "slot_paged_groups":
+                offer = [r for r in pending if r[0] in groups.get(chunks, ())]
+            if offer:
+                flags = eng.admit_many(offer)
+                admitted = [r[0] for r, ok in zip(offer, flags) if ok]
+                refused.append(len(offer) - len(admitted))
+                if paged and admitted:
+                    groups[chunks] = admitted
+                check(mode != "slot_paged_groups" or not refused[-1],
+                      f"slot drain refused a paged admission group {offer}")
+                pending = [r for r in pending if r[0] not in admitted]
+            peak = max(peak, eng.tokens_in_use)
+            for s in eng.step_chunk():
+                done[s.rid] = s.tokens
+            chunks += 1
+            check(chunks <= 1000, f"{mode} drain did not end")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        for rid, _, budget, extra in reqs:
+            check(len(done[rid]) == budget + extra,
+                  f"{mode} drain: request {rid} got {len(done[rid])} tokens "
+                  f"for budget {budget} + {extra}")
+        decode = "paged_decode_attention" if paged else "decode_attention"
+        other = "decode_attention" if paged else "paged_decode_attention"
+        for name in ("flash_attention", "fused_ffn", decode):
+            check(launches.get(name, 0) > 0,
+                  f"{name} was launched 0 times in the {mode} drain")
+        check(launches.get(other, 0) == 0,
+              f"{other} was launched in the {mode} drain")
+        tokens[mode] = done
+        row = {"wall_s": wall, "chunks": chunks,
+               "tokens_per_s": sum(map(len, done.values())) / wall,
+               "refused_per_admission": refused,
+               "peak_tokens_in_use": peak, "launches": launches}
+        if paged:
+            check(refused[0] > 0, "the paged pool admitted every request "
+                  "at once: no back-pressure")
+            # with no duplicate or out-of-range block on the free list, a
+            # free list of n_blocks entries holds every block
+            check(eng.check_block_invariants(), "block invariants")
+            check(eng.allocator.n_free == n_blocks
+                  and eng.allocator.reserved == 0,
+                  "free list not restored after the drain")
+            row["free_list_restored"] = True
+            row["admission_groups"] = {str(c): g for c, g in groups.items()}
+        if mode != "slot_paged_groups":
+            # one profiled chunk of 16 steps at 8 live slots, positions ~100
+            # (8 requests of 96 + 31 tokens fill the 64-block pool exactly)
+            check(all(eng.admit_many(
+                [(1000 + i, np.arange(96) % 97 + 1, 32, 0)
+                 for i in range(8)])),
+                f"{mode}: 8 profiling requests not admitted")
+            row["breakdown_8_slots"] = profile_steps(
+                lambda eng=eng: eng.step_chunk(16), 1, 16)
+            while eng.n_active:
+                eng.step_chunk()
+        out[mode] = row
+        del eng
+        torch.cuda.empty_cache()
+
+    def agreeing(a, b):
+        return sum(tokens[a][rid] == tokens[b][rid] for rid in tokens[a])
+    # reported, not asserted: see the module docstring
+    out["requests_agreeing"] = agreeing("paged", "slot")
+    out["requests_agreeing_same_groups"] = agreeing("paged",
+                                                    "slot_paged_groups")
+    out["bf16_tokens_agree_paged_vs_slot"] = (
+        out["requests_agreeing"] == len(reqs))
+    print(json.dumps(out))
+    return out
 
 
 REPLACES = {
@@ -377,6 +709,9 @@ REPLACES = {
                         "src/repro/kernels/flash_attention.py:98"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:170"),
+    "paged_decode_attention": (
+        "src/repro_torch/csrc/paged_decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:114"),
     "fused_ffn": ("src/repro_torch/csrc/fused_ffn.cu",
                   "src/repro/kernels/fused_ffn.py:57"),
 }
@@ -406,15 +741,32 @@ def main() -> int:
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     _, summary = kernel_cases(dev, flush)
     del flush
-    model_phase(dev)
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg32 = dataclasses.replace(get_config("qwen3-0.6b"), dtype="float32")
+    params32 = init_params(cfg32, seed=0, device=dev)
+    model_phase(dev, cfg32, params32)
+    paged_model_phase(dev, cfg32, params32)
+    del params32
+    torch.cuda.empty_cache()
+
     served = serve_phase(dev)
+    cfg = get_config("qwen3-0.6b")
+    params = init_params(cfg, seed=0, device=dev)
+    continuous = continuous_serve_phase(dev, cfg, params)
+    rolling_drain_phase(dev, cfg, params, continuous)
+    # each kernel's launches on the path that runs it: the slot kernels on
+    # the DecodeEngine serve, the paged kernel on the continuous serve
+    launches = {**served["launches"], "paged_decode_attention":
+                continuous["launches"]["paged_decode_attention"]}
 
     kernels = []
     for name, (source, replaces) in REPLACES.items():
         row = summary[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
-                        "launches": served["launches"][name],
+                        "launches": launches[name],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],

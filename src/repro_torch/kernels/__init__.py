@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels of the port and their plain PyTorch versions.
 
-Each kernel module (``flash_attention``, ``decode_attention``,
-``fused_ffn``) holds a wrapper that launches the CUDA kernel built from
-``repro_torch/csrc`` for a CUDA tensor, and the kernel's plain PyTorch
-version, which the wrapper takes only for a CPU tensor. ``ops`` adapts the
+Each kernel module (``flash_attention``, ``decode_attention`` with the
+slot and the paged kernel, ``fused_ffn``) holds wrappers that launch the
+CUDA kernels built from ``repro_torch/csrc`` for a CUDA tensor, and each
+kernel's plain PyTorch version, which the wrapper takes only for a CPU
+tensor. ``ops`` adapts the
 model's layouts to the kernels'; ``ref`` holds the JAX package's oracles.
 
 ``LAUNCHES`` counts kernel launches per kernel name: each wrapper adds one

@@ -29,7 +29,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 #: kernel libraries, one per CUDA source
-SOURCES = ("flash_attention", "decode_attention", "fused_ffn")
+SOURCES = ("flash_attention", "decode_attention", "paged_decode_attention",
+           "fused_ffn")
 
 _libs: dict = {}
 _lock = threading.Lock()

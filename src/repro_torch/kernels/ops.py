@@ -15,6 +15,8 @@ import torch
 
 from . import ref
 from .decode_attention import decode_attention as _decode
+from .decode_attention import paged_decode_attention as _paged
+from .decode_attention import paged_gather
 from .flash_attention import flash_attention as _flash
 from .fused_ffn import fused_ffn as _ffn
 
@@ -59,6 +61,32 @@ def decode_attention(q: Tensor, k: Tensor, v: Tensor, valid: Tensor, *,
         return out.reshape(B, 1, nh, hd)
     out = _decode(q.reshape(B, nkv, G, hd), k.permute(0, 2, 1, 3),
                   v.permute(0, 2, 1, 3), valid.contiguous())
+    return out.reshape(B, 1, nh, hd)
+
+
+def paged_decode_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
+                           block_tables: Tensor, pos: Tensor, *,
+                           force_ref: bool = False) -> Tensor:
+    """Model layout: q [B,1,nh,hd]; k/v_pool [P,bs,nkv,hd];
+    block_tables [B,n_bt] int32; pos [B] int32 -> [B,1,nh,hd].
+
+    ``force_ref`` densifies the pool through the block table (sentinels
+    clipped to block P - 1, masked by position and by sentinel) and runs
+    the reference attend, as the JAX package's cross-check path does.
+    """
+    B, _, nh, hd = q.shape
+    nkv = k_pool.shape[2]
+    G = nh // nkv
+    if force_ref:
+        kk, vv, valid = paged_gather(k_pool, v_pool, block_tables, pos)
+        C = kk.shape[1]
+        out = ref.decode_attention_ref(
+            q.reshape(B * nkv, G, hd),
+            kk.permute(0, 2, 1, 3).reshape(B * nkv, C, hd),
+            vv.permute(0, 2, 1, 3).reshape(B * nkv, C, hd),
+            valid[:, None, :].expand(B, nkv, C).reshape(B * nkv, C))
+        return out.reshape(B, 1, nh, hd)
+    out = _paged(q.reshape(B, nkv, G, hd), k_pool, v_pool, block_tables, pos)
     return out.reshape(B, 1, nh, hd)
 
 

@@ -1,22 +1,25 @@
-"""GQA attention: RoPE, qk-norm, prefill and slot-cache decode.
+"""GQA attention: RoPE, qk-norm, prefill, slot-cache and paged decode.
 
-The dense slot path of ``repro.models.attention``:
+The full-precision paths of ``repro.models.attention``:
 
   * ``attn_forward``        — full-sequence causal attention (prefill);
     returns the K/V tensors so prefill can seed a decode cache.
   * ``attn_decode_stacked`` — one-token step that writes the new token's
-    K/V in place into the layer-stacked cache and attends over it.
+    K/V in place into the layer-stacked slot cache and attends over it, at
+    one position for the whole batch (a host int) or at one position per
+    row (a ``[B]`` tensor, continuous batching).
+  * ``attn_decode_paged``   — one-token step against the paged block pool.
 
 Attention goes through ``kernels.ops`` (the Hopper kernels on a CUDA
 device, their plain versions on the CPU) at every shape; the JAX package's
 ``% 16`` gate existed only because Pallas blocks must divide the array.
-``force_ref=True`` takes the JAX package's reference ``_sdpa`` instead.
-The int8 ``QuantKVCache``, ``PagedKVCache`` and sliding-window ring
+``force_ref=True`` takes the JAX package's reference path instead. The
+int8 ``QuantKVCache`` (and int8 paged pools) and sliding-window ring
 buffers are not ported yet.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -31,18 +34,59 @@ class KVCache(NamedTuple):
     """Layer-stacked dense decode cache.
 
     ``k``/``v`` are ``[L, B, C, nkv, hd]`` (C = capacity) and are updated in
-    place by :func:`attn_decode_stacked`. ``length`` is the aligned batch's
-    position as a host int (every row and layer sits at the same position),
-    so writing the next token's slot needs no device-to-host read.
+    place by :func:`attn_decode_stacked`. ``length`` is the position of the
+    next token, the same in every layer: a host int when every row sits at
+    the same position (``DecodeEngine``), so writing the next token's slot
+    needs no device-to-host read; or an int32 ``[B]`` tensor on the device
+    with one position per row (``ContinuousBatchingEngine``).
     """
 
     k: Tensor
     v: Tensor
-    length: int
+    length: Union[int, Tensor]
 
     @property
     def capacity(self) -> int:
         return self.k.shape[2]
+
+
+class PagedKVCache(NamedTuple):
+    """Block-pooled KV cache (full precision), as ``repro``'s.
+
+        k, v          [L, P + 1, bs, nkv, hd]  pool of P blocks, plus one
+                                               trash block at index P
+        block_tables  [B, n_bt] int32          per-slot logical -> physical
+                                               map; entry P = unassigned
+        length        [B] int32                per-slot position of the next
+                                               token, the same in every layer
+
+    Logical position ``p`` of slot ``b`` lives at
+    ``pool[layer, block_tables[b, p // bs], p % bs]``. The JAX package
+    drops writes through a sentinel entry (``mode="drop"``); PyTorch's
+    indexed writes have no drop mode, so here the sentinel addresses the
+    trash block at index P, which absorbs those writes (retired rows riding
+    a chunk, prefill pads) without a host check, and which no read sees:
+    attention reads ``k[layer, :P]`` and masks sentinel entries. The JAX
+    package's pool is ``k[:, :P]``.
+    """
+
+    k: Tensor
+    v: Tensor
+    block_tables: Tensor
+    length: Tensor
+
+    @property
+    def n_blocks(self) -> int:
+        return self.k.shape[1] - 1
+
+    @property
+    def block_size(self) -> int:
+        return self.k.shape[2]
+
+    @property
+    def capacity(self) -> int:
+        """Per-slot logical capacity (block-table width x block size)."""
+        return self.block_tables.shape[1] * self.k.shape[2]
 
 
 def init_attn(cfg: ModelConfig, gen: torch.Generator, lead: tuple) -> dict:
@@ -139,9 +183,29 @@ def cache_from_prefill(cfg: ModelConfig, k: Tensor, v: Tensor,
     return cache._replace(length=S)
 
 
-def _decode_valid(pos: int, C: int, device) -> Tensor:
-    """[1, C] bool mask over cache slots: slots <= pos are filled."""
-    return (torch.arange(C, device=device) <= pos)[None]
+def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
+                     block_size: int, n_bt: int, device,
+                     dtype=None) -> PagedKVCache:
+    """Zeroed paged pool (plus its trash block), all-sentinel block tables
+    and zero positions. ``n_bt`` is the block-table width, the per-slot
+    logical capacity in blocks."""
+    shape = (cfg.n_layers, n_blocks + 1, block_size, cfg.n_kv_heads, cfg.hd)
+    dtype = dtype or cfg.tdtype
+    return PagedKVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        block_tables=torch.full((batch, n_bt), n_blocks, dtype=torch.int32,
+                                device=device),
+        length=torch.zeros(batch, dtype=torch.int32, device=device))
+
+
+def _decode_valid(pos, C: int, device) -> Tensor:
+    """[1 or B, C] bool mask over cache slots: slots <= pos are filled
+    (``pos`` a host int, or a ``[B]`` tensor of per-row positions)."""
+    slots = torch.arange(C, device=device)
+    if isinstance(pos, Tensor):
+        return slots[None] <= pos[:, None]
+    return (slots <= pos)[None]
 
 
 def _decode_attend(cfg: ModelConfig, p: dict, q: Tensor, k: Tensor,
@@ -157,24 +221,83 @@ def _decode_attend(cfg: ModelConfig, p: dict, q: Tensor, k: Tensor,
     return torch.matmul(out.reshape(B, 1, -1), p["wo"])
 
 
+def _rope_positions(pos, device) -> Tensor:
+    """RoPE positions of the new token: [1] for a host int, [B, 1] per row."""
+    if isinstance(pos, Tensor):
+        return pos[:, None]
+    return torch.arange(pos, pos + 1, device=device)
+
+
 def attn_decode_stacked(cfg: ModelConfig, p: dict, x: Tensor, kv: KVCache,
-                        pos: int, layer: int,
+                        pos: Union[int, Tensor], layer: int,
                         force_ref: bool = False) -> Tensor:
     """One-token step writing straight into the STACKED cache.
 
-    x [B,1,d]; ``pos`` is the aligned batch's position (a host int), the
-    slot the new token's K/V land in. The JAX package's
+    x [B,1,d]; ``pos`` is the new token's position: a host int shared by
+    every row, or an int32 ``[B]`` tensor, one per row. The JAX package's
     ``dynamic_update_slice`` at a traced position becomes an in-place write
-    into ``kv.k[layer, :, slot]`` / ``kv.v[layer, :, slot]``; like that op,
-    a position past the capacity writes the last slot. No device-to-host
-    read happens here. Returns y [B,1,d]; the caller owns the position.
+    into ``kv.k[layer, :, slot]``; like that op, a shared position past the
+    capacity writes the last slot. Its per-row scatter drops a row whose
+    position is past the capacity (a retired row riding a chunk); here that
+    row's slot index is clamped and its old value written back. No
+    device-to-host read happens here. Returns y [B,1,d]; the caller owns
+    the position.
     """
-    q, k_new, v_new = _project_qkv(
-        cfg, p, x, torch.arange(pos, pos + 1, device=x.device))
+    q, k_new, v_new = _project_qkv(cfg, p, x,
+                                   _rope_positions(pos, x.device))
     C = kv.capacity
-    slot = min(pos, C - 1)
-    kv.k[layer, :, slot] = k_new[:, 0]
-    kv.v[layer, :, slot] = v_new[:, 0]
+    if isinstance(pos, Tensor):
+        rows = torch.arange(x.shape[0], device=x.device)
+        slot = pos.clamp(max=C - 1)
+        keep = (pos >= C)[:, None, None]
+        kv.k[layer, rows, slot] = torch.where(keep, kv.k[layer, rows, slot],
+                                              k_new[:, 0])
+        kv.v[layer, rows, slot] = torch.where(keep, kv.v[layer, rows, slot],
+                                              v_new[:, 0])
+    else:
+        slot = min(pos, C - 1)
+        kv.k[layer, :, slot] = k_new[:, 0]
+        kv.v[layer, :, slot] = v_new[:, 0]
     valid = _decode_valid(pos, C, x.device)
     return _decode_attend(cfg, p, q, kv.k[layer], kv.v[layer], valid,
                           force_ref)
+
+
+def attn_decode_paged(cfg: ModelConfig, p: dict, x: Tensor,
+                      pc: PagedKVCache, pos: Tensor, layer: int,
+                      force_ref: bool = False) -> Tensor:
+    """One-token step against the paged block pool.
+
+    x [B,1,d]; ``pos`` [B] int32 the per-slot positions. The new token's
+    K/V is written in place at ``pool[layer, block_tables[b, pos // bs],
+    pos % bs]``; a position past the block table, or behind a sentinel
+    entry, writes the trash block (the JAX package drops those writes).
+    The attend runs ``paged_decode_attention`` over the pool directly (the
+    Hopper kernel on a CUDA device, its plain version on the CPU).
+    ``force_ref=True`` takes the JAX package's reference path instead:
+    gather the slot's blocks into the dense ``[B, C, nkv, hd]`` layout
+    (sentinels clipped to a real block, hidden by the ``slots <= pos``
+    mask) and reuse the slot attend. Returns y [B,1,d].
+    """
+    B = x.shape[0]
+    q, k_new, v_new = _project_qkv(cfg, p, x, pos[:, None])
+    P, bs = pc.n_blocks, pc.block_size
+    n_bt = pc.block_tables.shape[1]
+    rows = torch.arange(B, device=x.device)
+    bidx = pos // bs
+    blk = torch.where(bidx < n_bt,
+                      pc.block_tables[rows, bidx.clamp(max=n_bt - 1)], P)
+    off = pos % bs
+    pc.k[layer, blk, off] = k_new[:, 0]
+    pc.v[layer, blk, off] = v_new[:, 0]
+    if not force_ref:
+        out = kops.paged_decode_attention(q, pc.k[layer, :P], pc.v[layer, :P],
+                                          pc.block_tables, pos)
+        return torch.matmul(out.reshape(B, 1, -1), p["wo"])
+    # the JAX package's gather path masks by position only: a sentinel
+    # entry reads a clipped real block, hidden because it lies past pos
+    k, v, _ = kops.paged_gather(pc.k[layer, :P], pc.v[layer, :P],
+                                pc.block_tables, pos)
+    return _decode_attend(cfg, p, q, k, v,
+                          _decode_valid(pos, k.shape[1], x.device),
+                          force_ref=True)

@@ -9,7 +9,7 @@ in a Python loop over views of the stacked leaves.
 Entry points:
     init_params(cfg, seed, device)
     forward(cfg, params, tokens, return_cache=False, cache_capacity=None)
-    decode_step(cfg, params, token, cache)
+    decode_step(cfg, params, token, cache)   # slot or paged cache
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ import torch
 
 from ..compat import DEFAULT_DEVICE, resolve_device
 from . import attention
-from .attention import KVCache
+from .attention import PagedKVCache
 from .config import ModelConfig
 from .layers import (apply_mlp, apply_norm, embed_tokens, init_embed,
                      init_mlp, init_norm, lm_head)
@@ -113,17 +113,20 @@ def decode_step(cfg: ModelConfig, params: dict, token: Tensor, cache: dict,
 
     The counterpart of the JAX package's ``decode_step(static_layers=True)``:
     a loop over layers that writes each layer's new K/V in place into the
-    stacked cache leaves. The returned cache shares those tensors, with its
-    position advanced by one.
+    cache leaves, dispatching on the cache type as ``_attn_block_static``
+    does: a stacked :class:`KVCache` (one position for the batch, or one
+    per row) or a :class:`PagedKVCache`. The returned cache shares those
+    tensors, with its position advanced by one.
     """
-    kv: KVCache = cache["layers"]
+    kv = cache["layers"]
     pos = kv.length
+    attend = (attention.attn_decode_paged if isinstance(kv, PagedKVCache)
+              else attention.attn_decode_stacked)
     x = embed_tokens(cfg, params["embed"], token)
     for i in range(cfg.n_layers):
         p = _layer_at(params["blocks"], i)
-        x = x + attention.attn_decode_stacked(
-            cfg, p["attn"], apply_norm(cfg, p["ln1"], x), kv, pos, i,
-            force_ref=force_ref)
+        x = x + attend(cfg, p["attn"], apply_norm(cfg, p["ln1"], x), kv, pos,
+                       i, force_ref=force_ref)
         x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x),
                           force_ref=force_ref)
     x = apply_norm(cfg, params["final_norm"], x)

@@ -1,10 +1,14 @@
 """Serving runtime: allocator-driven FIFO LLM server with budget enforcement."""
+from .continuous import BlockAllocator, ContinuousBatchingEngine, Slot
 from .engine import DecodeEngine
-from .metrics import ServingReport, empty_report, percentile_summary, summarize
+from .metrics import (ServingReport, empty_report, occupancy_summary,
+                      percentile_summary, summarize)
 from .request import CompletedRequest, Phase, Request
 from .scheduler import Scheduler
 from .server import LLMServer, ServerConfig, timecall
 
-__all__ = ["DecodeEngine", "LLMServer", "ServerConfig", "Scheduler",
-           "Request", "CompletedRequest", "Phase", "ServingReport",
-           "summarize", "empty_report", "percentile_summary", "timecall"]
+__all__ = ["DecodeEngine", "ContinuousBatchingEngine", "BlockAllocator",
+           "Slot", "LLMServer", "ServerConfig", "Scheduler", "Request",
+           "CompletedRequest", "Phase", "ServingReport", "summarize",
+           "empty_report", "occupancy_summary", "percentile_summary",
+           "timecall"]

@@ -1,0 +1,459 @@
+"""Continuous batching: requests join and leave the decode batch in flight.
+
+The port of ``repro.serving.continuous``. A fixed pool of ``max_slots``
+decode rows, each holding an independent request at its own cache
+position:
+
+* **batched admission**: up to k queued requests prefill in ONE
+  right-padded B=k forward (``admit_many``), and all k rows are inserted
+  into the engine cache by one indexed write over a slot-index vector,
+* one shared decode step advances every active slot, either per token
+  (``step``, the reference) or ``chunk`` steps at a time (``step_chunk``):
+  the JAX package's fused ``lax.scan`` becomes a loop of decode steps
+  whose tokens stay on the device, and the host reads them back once per
+  chunk,
+* strict per-slot budget enforcement (the paper's control knob): a slot
+  retires when ``budget + max_extra`` tokens are out.
+
+Paged mode (``paged=True``): the KV cache is a shared pool of fixed-size
+blocks (:class:`~..models.attention.PagedKVCache`) and admission is gated
+by tokens, not rows. A request is admitted while its worst-case need
+(``prompt_len + budget + max_extra - 1`` tokens) fits the unreserved pool
+(:class:`BlockAllocator` reservation) and a row is free. Physical blocks
+are allocated lazily at chunk boundaries and freed when the slot retires.
+The block table is authoritative on the host and copied to the device, as
+data, only when it changed, once per chunk boundary; the decode loop reads
+no position back. Exhaustion is back-pressure: ``admit_many`` returns
+False for requests that do not fit and the caller offers them again.
+
+Stochastic sampling (``temperature > 0``) is chunk-invariant: token ``g``
+of request ``rid`` is drawn by :func:`~..models.sampling.fold_sample`, a
+pure function of ``(seed, rid, g)``, so ``step`` and ``step_chunk`` (any
+chunk, any admission order, paged or slot) give the same streams.
+
+Correctness contract (as the JAX package's): with greedy sampling a
+request served in a rolling batch produces exactly the tokens it would
+produce alone, and the paged path matches the slot path token for token,
+as the tests hold it on the CPU in f32, back-pressured or not. In bf16
+the match needs equal admission groups: a back-pressured paged mode
+prefills other groups than the slot mode, at other padded shapes and so
+in other summation orders, and a greedy argmax between near-equal logits
+can go the other way.
+
+The port has the dense attention backbone only (``ModelConfig.validate``
+raises for any other family), for which right-padded batched admission is
+exact and every admission batches freely. The JAX package's recurrent,
+windowed and capacity-dispatch MoE branches, and its int8 pools, are not
+ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..models import decode_step, fold_sample, forward
+from ..models.attention import init_cache, init_paged_cache
+from ..models.config import ModelConfig
+
+
+@dataclasses.dataclass
+class Slot:
+    rid: int
+    budget: int
+    max_extra: int
+    generated: int = 0
+    tokens: list = dataclasses.field(default_factory=list)
+    last_token: int = 0
+    prompt_len: int = 0
+
+    @property
+    def cache_len(self) -> int:
+        """Tokens currently held in KV for this slot (prompt + decode
+        writes; the prefill's first emitted token is not yet written)."""
+        return self.prompt_len + max(self.generated - 1, 0)
+
+
+class BlockAllocator:
+    """LIFO free list + reservation accounting over the paged KV pool.
+
+    Reservation happens at admission (worst-case blocks for the request's
+    prompt + budget + answer), physical allocation lazily at chunk
+    boundaries. Because the sum of reservations never exceeds the pool, a
+    lazy ``alloc`` can never fail mid-flight: exhaustion only surfaces as
+    an admission refusal, which queues the request.
+    """
+
+    def __init__(self, n_blocks: int):
+        self.n_blocks = n_blocks
+        self._free = list(range(n_blocks - 1, -1, -1))  # pop() -> block 0 first
+        self.reserved = 0
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def n_allocated(self) -> int:
+        return self.n_blocks - len(self._free)
+
+    def can_reserve(self, n: int) -> bool:
+        return self.reserved + n <= self.n_blocks
+
+    def reserve(self, n: int) -> bool:
+        if not self.can_reserve(n):
+            return False
+        self.reserved += n
+        return True
+
+    def release(self, n: int) -> None:
+        if n > self.reserved:
+            raise AssertionError(f"releasing {n} blocks of a {self.reserved}"
+                                 "-block reservation")
+        self.reserved -= n
+
+    def alloc(self, n: int) -> list:
+        if n > len(self._free):
+            raise AssertionError("allocation beyond reservation")
+        return [self._free.pop() for _ in range(n)]
+
+    def free(self, blocks) -> None:
+        self._free.extend(blocks)
+        if len(self._free) > self.n_blocks:
+            raise AssertionError("more free blocks than the pool holds")
+
+    def check_balance(self, in_use: Optional[int] = None) -> bool:
+        """Audit the pool accounting; raises ``AssertionError`` on a
+        violation: a duplicate or out-of-range free block, ``free +
+        in_use != n_blocks`` (``in_use`` the caller's independent count of
+        blocks held), or a reservation outside ``[0, n_blocks]``."""
+        free = self._free
+        if len(set(free)) != len(free):
+            raise AssertionError("duplicate block on the free list")
+        if free and not all(0 <= b < self.n_blocks for b in free):
+            raise AssertionError("out-of-range block on the free list")
+        if not 0 <= self.reserved <= self.n_blocks:
+            raise AssertionError(
+                f"reservation accounting broken: {self.reserved} not in "
+                f"[0, {self.n_blocks}]")
+        if in_use is not None and len(free) + int(in_use) != self.n_blocks:
+            raise AssertionError(
+                f"block leak: {len(free)} free + {in_use} in use "
+                f"!= {self.n_blocks} total")
+        return True
+
+
+class ContinuousBatchingEngine:
+    def __init__(self, cfg: ModelConfig, params: dict, max_slots: int = 4,
+                 capacity: int = 512, chunk: int = 8, paged: bool = False,
+                 block_size: int = 16, n_blocks: Optional[int] = None,
+                 temperature: float = 0.0, seed: int = 0):
+        cfg.validate()
+        self.cfg = cfg
+        self.params = params
+        self.device = params["embed"]["tok"].device
+        self.max_slots = max_slots
+        self.chunk = chunk
+        self.temperature = float(temperature)
+        self.seed = int(seed)
+        self.paged = paged
+        if paged:
+            self.block_size = block_size
+            self.n_bt = max(1, math.ceil(capacity / block_size))
+            self.capacity = self.n_bt * block_size
+            # default pool = the slot path's aggregate KV memory
+            self.n_blocks = (max_slots * self.n_bt if n_blocks is None
+                             else n_blocks)
+            self.allocator = BlockAllocator(self.n_blocks)
+            self._slot_blocks = [[] for _ in range(max_slots)]
+            self._slot_reserved = [0] * max_slots
+            self._tables_host = np.full((max_slots, self.n_bt),
+                                        self.n_blocks, np.int32)
+            self._tables_dirty = False
+            self.cache = {"layers": init_paged_cache(
+                cfg, max_slots, self.n_blocks, block_size, self.n_bt,
+                self.device)}
+        else:
+            self.block_size = None
+            self.n_blocks = None
+            self.allocator = None
+            self.capacity = capacity
+            kv = init_cache(cfg, max_slots, capacity, self.device)
+            self.cache = {"layers": kv._replace(length=torch.zeros(
+                max_slots, dtype=torch.int32, device=self.device))}
+        self.slots: list = [None] * max_slots
+
+    # ------------------------------------------------------------ internals
+    def _rows(self, values, dtype=torch.int64) -> torch.Tensor:
+        """A per-slot host list as a device tensor (host-to-device only)."""
+        return torch.tensor(values, dtype=dtype, device=self.device)
+
+    def _next_tokens(self, logits: torch.Tensor, rids: torch.Tensor,
+                     gidx: torch.Tensor) -> torch.Tensor:
+        """logits [B, V] -> tokens [B]: greedy, or the chunk-invariant
+        seeded draw of token ``gidx`` of request ``rids``."""
+        if self.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)
+        return fold_sample(logits, self.seed, rids, gidx, self.temperature)
+
+    def _insert(self, k: torch.Tensor, v: torch.Tensor, slot_idx,
+                lengths: torch.Tensor) -> None:
+        """Write k prefilled rows (``k``/``v`` [L, k, S, nkv, hd]) into the
+        slot cache at ``slot_idx``, zeroing the rest of each row as the JAX
+        package's capacity-padded rows do; ``lengths`` [k] are the rows'
+        true prompt lengths."""
+        kv = self.cache["layers"]
+        S = k.shape[2]
+        if S > self.capacity:
+            raise ValueError(f"prompt length {S} exceeds cache capacity "
+                             f"{self.capacity}")
+        for buf, rows in ((kv.k, k), (kv.v, v)):
+            buf[:, slot_idx, :S] = rows
+            buf[:, slot_idx, S:] = 0
+        kv.length[slot_idx] = lengths
+
+    def _insert_paged(self, k: torch.Tensor, v: torch.Tensor, slot_idx,
+                      lengths: torch.Tensor) -> None:
+        """Scatter k prefilled rows into the paged pool. Logical position p
+        of row r lands at ``pool[:, table[slot, p // bs], p % bs]``; pad
+        positions (p >= lengths[r]) land on the trash block."""
+        pc = self.cache["layers"]
+        P, bs = pc.n_blocks, pc.block_size
+        S = k.shape[2]
+        ppos = torch.arange(S, device=self.device)
+        bidx = (ppos // bs).clamp(max=self.n_bt - 1)
+        rows_bt = pc.block_tables[slot_idx]                      # [k, n_bt]
+        blk = torch.where(ppos[None] < lengths[:, None],
+                          rows_bt[:, bidx], P)                   # [k, S]
+        off = (ppos % bs).expand_as(blk)
+        pc.k[:, blk, off] = k
+        pc.v[:, blk, off] = v
+        pc.length[slot_idx] = lengths
+
+    # -------------------------------------------------- paged block plumbing
+    def _reserve_tokens(self, prompt_len: int, budget: int,
+                        max_extra: int) -> int:
+        """Worst-case KV tokens a request ever holds: the prompt plus one
+        write per decode step (the final emitted token is never written)."""
+        return prompt_len + max(budget + max_extra - 1, 0)
+
+    def _reserve_blocks(self, prompt_len: int, budget: int,
+                        max_extra: int) -> int:
+        return max(1, math.ceil(
+            self._reserve_tokens(prompt_len, budget, max_extra)
+            / self.block_size))
+
+    def _grow_slot_blocks(self, i: int, cover_tokens: int) -> None:
+        """Assign physical blocks to slot ``i`` up to ``cover_tokens``
+        logical positions (capped at the slot's reservation)."""
+        need = min(math.ceil(cover_tokens / self.block_size),
+                   self._slot_reserved[i])
+        have = len(self._slot_blocks[i])
+        if need <= have:
+            return
+        new = self.allocator.alloc(need - have)
+        self._tables_host[i, have:need] = new
+        self._slot_blocks[i].extend(new)
+        self._tables_dirty = True
+
+    def _ensure_blocks(self, steps: int) -> None:
+        """Alloc on a chunk boundary: every live slot gets blocks covering
+        its next ``steps`` decode writes. The reservation caps the cover,
+        so the free list cannot run dry; writes past the cap land on the
+        trash block and belong to discarded post-retire tokens."""
+        for i, s in enumerate(self.slots):
+            if s is not None:
+                self._grow_slot_blocks(i, s.cache_len + steps)
+
+    def _sync_tables(self) -> None:
+        """Copy the host block table to the device if it changed."""
+        if self._tables_dirty:
+            self.cache["layers"].block_tables.copy_(
+                torch.from_numpy(self._tables_host))
+            self._tables_dirty = False
+
+    def _retire_slot(self, i: int) -> None:
+        """Free on retire: return the slot's blocks and reservation, and
+        sentinel its table row so its dead-row writes hit the trash block."""
+        self.slots[i] = None
+        if not self.paged:
+            return
+        self.allocator.free(self._slot_blocks[i])
+        self.allocator.release(self._slot_reserved[i])
+        self._slot_blocks[i] = []
+        self._slot_reserved[i] = 0
+        self._tables_host[i, :] = self.n_blocks
+        self._tables_dirty = True
+
+    # ------------------------------------------------------------------ api
+    def admit(self, rid: int, prompt: np.ndarray, budget: int,
+              max_extra: int = 4) -> bool:
+        """Prefill a request and place it in a free slot; False if full."""
+        return self.admit_many([(rid, prompt, budget, max_extra)])[0]
+
+    def admit_many(self, requests: Sequence[Tuple]) -> list:
+        """Admit queued requests ``(rid, prompt, budget, max_extra)`` in one
+        batched prefill. Returns per-request admission flags; admission is
+        FIFO over the list and stops at the first request that does not
+        fit (out of rows, or, paged, out of pool tokens).
+
+        Admission always emits the prefill's first token, so every request
+        produces ``max(budget + max_extra, 1)`` tokens.
+        """
+        free = [i for i, s in enumerate(self.slots) if s is None]
+        flags = [False] * len(requests)
+        batch = []
+        for j, req in enumerate(requests):
+            if len(batch) >= len(free):
+                break
+            if self.paged:
+                _, prompt, budget, max_extra = req
+                if len(prompt) > self.capacity:
+                    break
+                nres = self._reserve_blocks(len(prompt), budget, max_extra)
+                if not self.allocator.reserve(nres):
+                    break
+                self._slot_reserved[free[len(batch)]] = nres
+            batch.append((free[len(batch)], req))
+            flags[j] = True
+        if batch:
+            self._admit_group(batch)
+        return flags
+
+    def _admit_group(self, group) -> None:
+        """One right-padded prefill of the group and one insert."""
+        lengths = np.asarray([len(req[1]) for _, req in group],
+                             dtype=np.int64)
+        S = int(lengths.max())
+        tokens = np.zeros((len(group), S), dtype=np.int64)
+        for r, (_, req) in enumerate(group):
+            tokens[r, :lengths[r]] = req[1]
+        slots = [slot for slot, _ in group]
+        if self.paged:
+            # assign the prompt's blocks first so the insert lands on them
+            for slot, (_, prompt, _, _) in group:
+                self._grow_slot_blocks(slot, len(prompt))
+            self._sync_tables()
+        out = forward(self.cfg, self.params,
+                      torch.from_numpy(tokens).to(self.device),
+                      return_cache=True)
+        k, v = out.cache["layers"]                       # [L, k, S, ..]
+        lengths_d = self._rows(lengths)
+        slot_idx = self._rows(slots)
+        last = out.logits[torch.arange(len(group), device=self.device),
+                          lengths_d - 1]                          # [k, V]
+        firsts = self._next_tokens(
+            last, self._rows([req[0] for _, req in group]),
+            torch.zeros_like(lengths_d))            # first token: g = 0
+        lengths_d = lengths_d.to(torch.int32)
+        if self.paged:
+            self._insert_paged(k, v, slot_idx, lengths_d)
+        else:
+            self._insert(k, v, slot_idx, lengths_d)
+        firsts = firsts.cpu().numpy()
+        for r, (slot, (rid, _, budget, max_extra)) in enumerate(group):
+            first = int(firsts[r])
+            self.slots[slot] = Slot(
+                rid=rid, budget=budget, max_extra=max_extra, generated=1,
+                tokens=[first], last_token=first,
+                prompt_len=int(lengths[r]))
+
+    @property
+    def n_active(self) -> int:
+        return sum(s is not None for s in self.slots)
+
+    @property
+    def tokens_in_use(self) -> int:
+        """KV tokens currently held by live requests (prompt + generated
+        so far): the occupancy the paged pool is gated on."""
+        return sum(s.cache_len for s in self.slots if s is not None)
+
+    @property
+    def pool_tokens(self) -> int:
+        """Total KV token capacity (pool blocks, or slot rows x capacity)."""
+        if self.paged:
+            return self.n_blocks * self.block_size
+        return self.max_slots * self.capacity
+
+    @property
+    def pool_fill(self) -> float:
+        """Fraction of the KV pool held by live requests."""
+        return self.tokens_in_use / max(self.pool_tokens, 1)
+
+    @property
+    def blocks_in_use(self) -> int:
+        return self.allocator.n_allocated if self.paged else 0
+
+    def check_block_invariants(self) -> bool:
+        """Audit the paged pool against this engine's slot state: the
+        allocator's balance against the per-slot block lists, and the slot
+        reservations against the allocator's reservation counter. ``True``
+        on a slot engine."""
+        if not self.paged:
+            return True
+        held = sum(len(b) for b in self._slot_blocks)
+        self.allocator.check_balance(in_use=held)
+        slot_res = sum(self._slot_reserved)
+        if self.allocator.reserved < slot_res:
+            raise AssertionError(
+                f"slot reservations {slot_res} exceed allocator "
+                f"reservation counter {self.allocator.reserved}")
+        return True
+
+    def step(self) -> list:
+        """One decode step for all active slots; returns finished Slots.
+
+        The per-token reference path: one decode step and one host read
+        per token. ``step_chunk`` has the same semantics.
+        """
+        return self.step_chunk(1)
+
+    def step_chunk(self, chunk: Optional[int] = None) -> list:
+        """Advance every active slot by up to ``chunk`` tokens; returns the
+        Slots that finished inside the chunk.
+
+        The chunk's decode steps run back to back with their tokens on the
+        device, and the host reads them once at the end. Admissions happen
+        at chunk boundaries; a slot whose remaining budget is shorter than
+        the chunk retires mid-chunk (its surplus steps are discarded here;
+        in paged mode its surplus writes past its reservation land on the
+        trash block).
+        """
+        chunk = self.chunk if chunk is None else chunk
+        if self.n_active == 0 or chunk <= 0:
+            return []
+        if self.paged:
+            self._ensure_blocks(chunk)
+            self._sync_tables()
+        token = self._rows([s.last_token if s else 0 for s in self.slots])
+        rids = gidx = None
+        if self.temperature > 0.0:   # empty rows draw throwaway tokens
+            rids = self._rows([s.rid if s else 0 for s in self.slots])
+            gidx = self._rows([s.generated if s else 0 for s in self.slots])
+        cache = self.cache
+        toks = []
+        for _ in range(chunk):
+            out = decode_step(self.cfg, self.params, token[:, None], cache)
+            cache = out.cache
+            token = self._next_tokens(out.logits[:, 0], rids, gidx)
+            toks.append(token)
+            if gidx is not None:
+                gidx = gidx + 1
+        self.cache = cache
+        toks = torch.stack(toks).cpu().numpy()            # [chunk, slots]
+        finished = []
+        for i, s in enumerate(self.slots):
+            if s is None:
+                continue
+            n_take = min(chunk, s.budget + s.max_extra - s.generated)
+            if n_take > 0:
+                s.tokens.extend(int(t) for t in toks[:n_take, i])
+                s.generated += n_take
+                s.last_token = int(toks[n_take - 1, i])
+            if s.generated >= s.budget + s.max_extra:
+                finished.append(s)
+                self._retire_slot(i)
+        return finished

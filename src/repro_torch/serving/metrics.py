@@ -1,7 +1,7 @@
 """Serving metrics aggregation.
 
 The report fields of ``repro.serving.metrics.ServingReport`` that a run
-without the tracer, monitor, KV pool or admission control fills in.
+without the tracer, monitor or admission control fills in.
 """
 from __future__ import annotations
 
@@ -47,6 +47,9 @@ class ServingReport:
     estimator_state: dict | None = None
     wait_percentiles: dict | None = None
     system_time_percentiles: dict | None = None
+    # KV occupancy sampled at the continuous engine's chunk boundaries
+    # (occupancy_summary); None without a continuous engine
+    occupancy: dict | None = None
     # correctly answered served requests per unit time
     goodput: float | None = None
 
@@ -62,9 +65,26 @@ def empty_report(n_resolves: int = 0,
         n_resolves=n_resolves, estimator_state=estimator_state)
 
 
+def occupancy_summary(samples, pool_tokens: int) -> dict | None:
+    """Fold (tokens_in_use, pool_fill) samples into the report's occupancy
+    gauge: {"mean_tokens_in_use", "peak_tokens_in_use", "mean_pool_fill",
+    "peak_pool_fill", "pool_tokens", "n_samples"}; None on no samples."""
+    if not samples:
+        return None
+    tok = np.asarray([s[0] for s in samples], dtype=np.float64)
+    fill = np.asarray([s[1] for s in samples], dtype=np.float64)
+    return {"mean_tokens_in_use": float(tok.mean()),
+            "peak_tokens_in_use": float(tok.max()),
+            "mean_pool_fill": float(fill.mean()),
+            "peak_pool_fill": float(fill.max()),
+            "pool_tokens": int(pool_tokens),
+            "n_samples": int(tok.size)}
+
+
 def summarize(problem: Problem, completed: Sequence[CompletedRequest],
               horizon: float, n_resolves: int = 0,
-              estimator_state: dict | None = None) -> ServingReport:
+              estimator_state: dict | None = None,
+              occupancy: dict | None = None) -> ServingReport:
     if not completed:
         return empty_report(n_resolves, estimator_state)
     waits = np.array([c.wait_time for c in completed])
@@ -102,5 +122,6 @@ def summarize(problem: Problem, completed: Sequence[CompletedRequest],
         estimator_state=estimator_state,
         wait_percentiles=percentile_summary(waits),
         system_time_percentiles=percentile_summary(syst),
+        occupancy=occupancy,
         goodput=float(correct.sum() / max(horizon, 1e-9)),
     )

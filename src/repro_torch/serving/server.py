@@ -9,8 +9,12 @@ Two execution modes, as in ``repro.serving.server``:
 
 ``batch_size > 1`` serves up to that many queued requests together (batch
 service time = slowest member plus an overhead per extra member). The
-tracer, metrics, admission-control and fault hooks, and the continuous
-batching engine, are not ported yet.
+real-token path takes either engine: a :class:`DecodeEngine` (one
+batch-synchronous ``generate``) or a :class:`ContinuousBatchingEngine`
+(batched admission and chunked decode of a rolling batch, re-admitting as
+slots retire, with the KV occupancy sampled at every chunk into the
+report). The tracer, metrics, admission-control and fault hooks are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -23,8 +27,9 @@ import numpy as np
 from ..core.allocator import TokenBudgetAllocator
 from ..core.params import Problem
 from ..queueing_sim.workload import Stream
+from .continuous import ContinuousBatchingEngine
 from .engine import DecodeEngine
-from .metrics import ServingReport, summarize
+from .metrics import ServingReport, occupancy_summary, summarize
 from .request import CompletedRequest, Phase, Request
 from .scheduler import Scheduler
 
@@ -51,7 +56,8 @@ class ServerConfig:
 class LLMServer:
     def __init__(self, problem: Problem,
                  server_cfg: Optional[ServerConfig] = None,
-                 engine: Optional[DecodeEngine] = None):
+                 engine: Optional[DecodeEngine
+                                  | ContinuousBatchingEngine] = None):
         self.problem = problem
         self.cfg = ServerConfig() if server_cfg is None else server_cfg
         if self.cfg.mode not in ("virtual", "wall"):
@@ -60,6 +66,9 @@ class LLMServer:
         self.allocator = TokenBudgetAllocator(problem)
         self.scheduler = Scheduler(self.allocator, self.cfg.discipline)
         self.completed: list = []
+        # (tokens_in_use, pool_fill) samples from the continuous engine,
+        # one per decode chunk; folded into ServingReport.occupancy
+        self._occupancy_samples: list = []
 
     def _service_time(self, reqs) -> float:
         tasks = self.problem.tasks
@@ -69,9 +78,38 @@ class LLMServer:
             return times[0]
         return max(times) * (1.0 + self.cfg.batch_overhead * (len(times) - 1))
 
+    def _run_continuous(self, reqs) -> None:
+        """Serve one scheduler batch through the continuous engine: batched
+        admission, chunked decode, re-admitting as slots retire until the
+        batch drains."""
+        eng = self.engine
+        pending = list(reqs)
+        done = {}
+        while pending or eng.n_active:
+            if pending:
+                flags = eng.admit_many(
+                    [(r.rid, r.prompt, r.budget, self.cfg.max_extra_tokens)
+                     for r in pending])
+                pending = [r for r, ok in zip(pending, flags) if not ok]
+            self._occupancy_samples.append((eng.tokens_in_use,
+                                            eng.pool_fill))
+            for s in eng.step_chunk():
+                done[s.rid] = s
+        for r in reqs:
+            s = done[r.rid]
+            r.generated = len(s.tokens)
+            r.output_tokens = list(s.tokens)
+            # strict enforcement: exactly budget + extra tokens per slot
+            # (admission always emits the prefill's first token)
+            if r.generated != max(r.budget + self.cfg.max_extra_tokens, 1):
+                raise RuntimeError(f"request {r.rid}: budget not enforced")
+
     def _engine_work(self, reqs) -> None:
         """Run the engine (or the virtual token accounting) for a batch."""
-        if self.cfg.generate_tokens and self.engine is not None:
+        if self.cfg.generate_tokens and isinstance(self.engine,
+                                                   ContinuousBatchingEngine):
+            self._run_continuous(reqs)
+        elif self.cfg.generate_tokens and self.engine is not None:
             maxlen = max(len(r.prompt) for r in reqs)
             prompts = np.zeros((len(reqs), maxlen), dtype=np.int32)
             for i, r in enumerate(reqs):          # left-padded
@@ -106,6 +144,7 @@ class LLMServer:
         """
         self.completed = []
         self.scheduler.reset()
+        self._occupancy_samples = []
         queries = list(stream.queries)
         n = len(queries)
         i = 0
@@ -148,6 +187,11 @@ class LLMServer:
                     wait_time=r.wait_time, service_time=dur,
                     system_time=r.system_time, n_tokens=int(r.generated),
                     correct=bool(r.correct_u < pk)))
+        occ = None
+        if self._occupancy_samples:
+            occ = occupancy_summary(self._occupancy_samples,
+                                    self.engine.pool_tokens)
         return summarize(self.problem, self.completed, horizon,
                          self.allocator.n_resolves,
-                         estimator_state=self.allocator.estimator_state())
+                         estimator_state=self.allocator.estimator_state(),
+                         occupancy=occ)

@@ -5,8 +5,9 @@ themselves are held to their plain versions on the card, in
 
 Tolerances are those of ``tests/test_kernels.py``: rtol = atol = 2e-5 in
 f32 and 2e-2 in bf16. Inputs are drawn with numpy and handed to both
-packages. Shapes with a fully masked row are avoided: the kernels mask
-with -1e30 and the oracles with -inf, so such rows differ by design.
+packages. Shapes with a fully masked row are avoided against the oracles:
+the kernels mask with -1e30 and the oracles with -inf, so such rows differ
+by design.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,11 +17,13 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention as j_decode
+from repro.kernels.decode_attention import paged_decode_attention as j_paged
 from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.fused_ffn import fused_ffn as j_ffn
 from repro_torch.kernels import LAUNCHES, ops, ref, reset_launches
-from repro_torch.kernels.decode_attention import (decode_attention,
-                                                  decode_attention_plain)
+from repro_torch.kernels.decode_attention import (
+    decode_attention, decode_attention_plain, paged_decode_attention,
+    paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.fused_ffn import fused_ffn, fused_ffn_plain
@@ -158,6 +161,89 @@ def test_ops_decode_matches_jax_ops(force_ref):
     _close(got, want, 2e-5)
 
 
+# ------------------------------------------------------ paged decode attention
+def _paged_case(rng, B, nkv, P, bs, n_bt, pos):
+    """Block tables drawn from a shuffled pool: slot b owns the blocks
+    covering positions 0..pos[b], the rest of its row is the sentinel P."""
+    perm = rng.permutation(P)
+    tables = np.full((B, n_bt), P, np.int32)
+    used = 0
+    for b in range(B):
+        n = min(pos[b] // bs + 1, n_bt)
+        tables[b, :n] = perm[used:used + n]
+        used += n
+    assert used <= P
+    return tables, np.asarray(pos, np.int32)
+
+
+PAGED_SHAPES = [  # B, nkv, G, hd, P, bs, n_bt, pos (ragged; one past the table)
+    (4, 2, 2, 64, 40, 8, 8, [0, 7, 30, 63]),
+    (3, 1, 4, 32, 16, 16, 4, [17, 45, 100]),
+]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,nkv,G,hd,P,bs,n_bt,pos", PAGED_SHAPES)
+def test_paged_plain_matches_pallas(dtype, B, nkv, G, hd, P, bs, n_bt, pos):
+    """Sentinel entries, a shuffled pool and ragged positions; every slot
+    sees at least one position (an all-sentinel row averages V over a
+    clipped block in the TPU kernel and gets 0 from the Hopper kernel)."""
+    rng = np.random.default_rng(8)
+    jq, tq = _pair(rng, (B, nkv, G, hd), dtype)
+    jk, tk = _pair(rng, (P, bs, nkv, hd), dtype)
+    jv, tv = _pair(rng, (P, bs, nkv, hd), dtype)
+    tables, pos = _paged_case(rng, B, nkv, P, bs, n_bt, pos)
+    tol = DTYPES[dtype][2]
+    want = j_paged(jq, jk, jv, jnp.asarray(tables), jnp.asarray(pos),
+                   interpret=True)
+    got = paged_decode_attention(tq, tk, tv, torch.from_numpy(tables),
+                                 torch.from_numpy(pos))
+    _close(got, want, tol)
+    _close(paged_decode_attention_plain(tq, tk, tv, torch.from_numpy(tables),
+                                        torch.from_numpy(pos)), want, tol)
+
+
+def test_paged_plain_all_sentinel_row_matches_pallas():
+    """A retired row (all sentinel): the plain version keeps the TPU
+    kernel's average over the clipped block."""
+    rng = np.random.default_rng(9)
+    jq, tq = _pair(rng, (2, 2, 2, 32), "float32")
+    jk, tk = _pair(rng, (6, 4, 2, 32), "float32")
+    jv, tv = _pair(rng, (6, 4, 2, 32), "float32")
+    tables = np.array([[3, 0, 6], [6, 6, 6]], np.int32)
+    pos = np.array([9, 5], np.int32)
+    want = j_paged(jq, jk, jv, jnp.asarray(tables), jnp.asarray(pos),
+                   interpret=True)
+    got = paged_decode_attention_plain(tq, tk, tv, torch.from_numpy(tables),
+                                       torch.from_numpy(pos))
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("force_ref", [False, True])
+def test_ops_paged_matches_jax_ops(force_ref):
+    rng = np.random.default_rng(10)
+    B, nh, nkv, hd, P, bs, n_bt = 3, 4, 2, 32, 24, 8, 6
+    jq, tq = _pair(rng, (B, 1, nh, hd), "float32")
+    jk, tk = _pair(rng, (P, bs, nkv, hd), "float32")
+    jv, tv = _pair(rng, (P, bs, nkv, hd), "float32")
+    tables, pos = _paged_case(rng, B, nkv, P, bs, n_bt, [5, 33, 47])
+    want = jops.paged_decode_attention(jq, jk, jv, jnp.asarray(tables),
+                                       jnp.asarray(pos), force_ref=True)
+    got = ops.paged_decode_attention(tq, tk, tv, torch.from_numpy(tables),
+                                     torch.from_numpy(pos),
+                                     force_ref=force_ref)
+    _close(got, want, 2e-5)
+
+
+def test_paged_launch_refuses_non_cuda_tensors():
+    from repro_torch.kernels import decode_attention as da
+    q = torch.zeros(1, 2, 2, 8)
+    pool = torch.zeros(3, 4, 2, 8)
+    with pytest.raises(ValueError, match="expected CUDA tensors"):
+        da._launch_paged(q, pool, pool, torch.zeros(1, 2, dtype=torch.int32),
+                         torch.zeros(1, dtype=torch.int32))
+
+
 # ----------------------------------------------------------------- fused ffn
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("E,T,d,f,bt,bf", [(1, 32, 64, 128, 16, 64),
@@ -196,6 +282,10 @@ def test_cpu_tensors_launch_nothing():
     x = torch.zeros(1, 2, 8)
     fused_ffn(x, torch.zeros(1, 8, 32), torch.zeros(1, 8, 32),
               torch.zeros(1, 32, 8))
+    paged_decode_attention(torch.zeros(1, 2, 2, 8), torch.zeros(3, 4, 2, 8),
+                           torch.zeros(3, 4, 2, 8),
+                           torch.zeros(1, 2, dtype=torch.int32),
+                           torch.zeros(1, dtype=torch.int32))
     assert sum(LAUNCHES.values()) == 0
 
 
