@@ -11,18 +11,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
 3. kernels: each Hopper kernel against its plain PyTorch version on the
    card at the serving paths' shapes (bf16 and f32, ragged S, T = 1,
    8 slots at ragged positions, over the dense slot cache and over a
-   shuffled block pool), with the maximum error beside its tolerance (for
-   bf16 decode, per slot, in ulps of the slot's outputs), the kernel's
-   median time (CUDA events
-   around one call, L2 flushed before it, the host's enqueue hidden behind
-   a spin kernel), the plain version's time, the time of the PyTorch
-   library calls that compute the same function where there are such (for
-   paged attention: the dense gather plus SDPA, two calls), and the bound
-   (the larger of bytes at 3.35 TB/s and FLOPs at the card's peak for the
-   dtype);
+   shuffled block pool; the two scans at rwkv6-1.6b's and zamba2-7b's
+   prefill shapes; flash and slot decode at zamba2's head_dim 112 and the
+   FFN at its d 3584 / d_ff 14336), with the maximum error beside its
+   tolerance (for bf16 decode, per slot, in ulps of the slot's outputs;
+   for the scans also the final state's), the kernel's median time (CUDA
+   events around one call, L2 flushed before it, the host's enqueue
+   hidden behind a spin kernel), the plain version's time, the time of
+   the PyTorch library calls that compute the same function where there
+   are such (for paged attention: the dense gather plus SDPA, two calls;
+   none for the FFN and the scans), and the bound (the larger of bytes at
+   3.35 TB/s and FLOPs at the card's peak for the dtype);
 4. model: full-width qwen3-0.6b in f32 (random weights from seed 0), one
    prompt, prefill plus 8 greedy decode steps, kernels against the
-   reference path (force_ref);
+   reference path (force_ref): logits within 1e-3, greedy tokens equal;
 5. paged model: the same f32 model; two ragged prompts admitted by a
    paged ContinuousBatchingEngine (batched prefill, insert into the block
    pool), then 8 paged decode steps with the kernels against force_ref;
@@ -36,7 +38,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
 7. continuous serve: the same stream through LLMServer(batch_size=8) with
    ContinuousBatchingEngine(paged=True, max_slots=8, capacity=2048,
    block_size=16, chunk=16): exact budgets, the report with its KV
-   occupancy, launch counts (paged decode attention must run);
+   occupancy, launch counts (paged decode attention must run). This and
+   the next phase run qwen3-0.6b at full width but 8 of its 28 layers
+   (QWEN3_BATCHED_LAYERS), to keep the script well inside its time limit;
 8. rolling drain: all 8 requests offered to the paged engine at once
    against a 64-block pool (1024 tokens, below the 1590 they need), so
    admission is back-pressured; block invariants and the free list
@@ -47,9 +51,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
    paged drain and each slot drain is reported, not asserted: a greedy
    argmax on random weights can flip on a summation order (other groups
    prefill at other padded shapes); phase 5 is the check. Then one
-   profiled chunk of decode at 8 live slots in paged and slot mode.
+   profiled chunk of decode at 8 live slots in paged and slot mode;
+9. rwkv6 model and serve: full-width rwkv6-1.6b, phase 4 in f32
+   (prefill through the wkv scan kernel) plus every scan of the
+   reference prefill held in situ against the kernel and the plain
+   versions' floor; its end-to-end logits are held to 1.5 times that
+   floor (RWKV_LOGIT_REASON), and an f64 witness measures each f32
+   evaluation's prefill logits, and the chunked scan's in f64, against
+   the sequential reference in f64. Then phase 6 in bf16 (the scan
+   kernel must run);
+10. zamba2 model and serve: full-width zamba2-7b (81 Mamba2 layers, the
+   shared attention block applied 13 times), phase 4 in f32 with the
+   same in-situ check, then phase 6 in bf16 (the SSD scan, flash, slot
+   decode and FFN kernels must run). Each model is freed before the next
+   phase.
 
-The line before the last is the kernels' JSON summary; the last line is
+The line before the last is the kernels' JSON summary (with each kernel's
+launches on every serve path that ran it); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -93,10 +111,37 @@ FFN_F32_REASON = ("f32 sums over d = 1024 and d_ff = 3072 terms taken in "
                   "another order than torch.matmul's")
 LOGIT_TOL = 1e-3
 LOGIT_REASON = ("f32 end to end; kernels and reference sum in other orders "
-                "and the difference compounds over 28 layers; 1e-3 is about "
-                "0.1% of the logits' scale")
+                "(the scans' reference is the sequential recurrence) and the "
+                "difference compounds over the layers; 1e-3 is about 0.1% "
+                "of the logits' scale")
+RWKV_FLOOR_FACTOR = 1.5
+RWKV_LOGIT_REASON = (
+    "1.5 x plain_path_logits_max_abs_err, the floor measured in this run "
+    "with each scan's plain version in place of its kernel: two exact f32 "
+    "evaluations of full-width rwkv6 with random weights (the sequential "
+    "reference and the chunked plain version) already differ far above "
+    "1e-3 after 24 layers. f64_witness holds every f32 evaluation's "
+    "prefill logits against the sequential reference in f64 (the kernel "
+    "path may sit at most 1.5 x as far from it as the f32 reference or "
+    "plain path does) and the chunked scan in f64 against it within 1e-3; "
+    "every scan is also held in situ at the scan tolerances, and greedy "
+    "tokens must agree")
+SCAN_REASON = {
+    torch.bfloat16: "tests/test_kernels.py's bf16 scan tolerance: rtol 5e-2, "
+                    "atol 5e-2 * max|y|",
+    torch.float32: "tests/test_kernels.py's f32 scan tolerances: rwkv6 "
+                   "rtol = atol = 1e-4; SSD rtol 1e-3, atol 2e-5 * max|y|; "
+                   "f32 sums over a chained state in another order",
+}
+STATE_TOL = 1e-3          # the final f32 state, rtol = atol (test_kernels)
 # the serving paths' shapes at qwen3-0.6b's widths
 H, G, HD, D, DFF = 8, 2, 128, 1024, 3072
+# rwkv6-1.6b's and zamba2-7b's: wkv heads, SSD heads, state, shared block
+RWKV_H, RWKV_HD = 32, 64
+SSD_H, SSD_HD, SSD_DS = 112, 64, 64
+Z_H, Z_HD, Z_D, Z_DFF = 32, 112, 3584, 14336
+SCAN_S = (18, 113, 128)   # the stream's shortest and longest prompt, 128
+QWEN3_BATCHED_LAYERS = 8  # depth of the continuous serve and the drains
 
 
 
@@ -159,13 +204,23 @@ def decode_bf16_tol(want: torch.Tensor) -> torch.Tensor:
         TOL[torch.bfloat16])
 
 
+def scan_tol(name: str, dtype, want: torch.Tensor) -> tuple:
+    """(atol, rtol) of a scan's output, tests/test_kernels.py's."""
+    scale = float(want.float().abs().max())
+    if dtype == torch.bfloat16:
+        return 5e-2 * scale, 5e-2
+    if name == "rwkv6_scan":
+        return 1e-4, 1e-4
+    return 2e-5 * scale, 1e-3
+
+
 def kernel_cases(dev, flush):
-    """Every kernel against its plain version at the serving path's shapes.
+    """Every kernel against its plain version at the serving paths' shapes.
     Returns (rows, {kernel: row of the JSON summary})."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import (decode_attention, flash_attention,
-                                     fused_ffn)
+                                     fused_ffn, rwkv6_scan, ssd_scan)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, summary = [], {}
@@ -175,8 +230,11 @@ def kernel_cases(dev, flush):
                 * scale).to(dtype)
 
     def record(name, case, dtype, got, want, tol, reason, fn, plain, lib,
-               nbytes, flops, main, library="one call"):
-        per_slot = {}
+               nbytes, flops, main, library="one call", state=None):
+        """``tol``: one float (atol = rtol), a per-slot tensor of atols, or
+        an (atol, rtol) pair. ``state``: the scans' (got, want) final
+        states, held at STATE_TOL."""
+        per_slot, extra = {}, {}
         if isinstance(tol, torch.Tensor):            # one tolerance per slot
             err, ok = compare(got, want,
                               tol.view((-1,) + (1,) * (want.dim() - 1)), 0.0)
@@ -186,26 +244,32 @@ def kernel_cases(dev, flush):
                 .tolist(),
                 "slot_err_ulps": (slot_err / slot_bf16_ulp(want)).tolist()}
             tol = tol.tolist()
+        elif isinstance(tol, tuple):
+            err, ok = compare(got, want, *tol)
+            tol = {"atol": tol[0], "rtol": tol[1]}
         else:
             err, ok = compare(got, want, tol, tol)
+        if state is not None:
+            s_err, s_ok = compare(*state, STATE_TOL, STATE_TOL)
+            extra = {"state_max_abs_err": s_err, "state_tol": STATE_TOL}
+            ok = ok and s_ok
         bms, by = bound(nbytes, flops, dtype)
         row = {"name": name, "case": case, "dtype": str(dtype)[6:],
                "max_abs_err": err, "tol": tol, "tol_reason": reason,
-               **per_slot, "ok": ok, "ms": median_ms(fn, flush),
+               **per_slot, **extra, "ok": ok, "ms": median_ms(fn, flush),
                "plain_ms": median_ms(plain, flush),
                "library_ms": None if lib is None else median_ms(lib, flush),
                "library": None if lib is None else library,
                "bound_ms": bms, "bound_by": by}
         print(json.dumps(row))
         rows.append(row)
-        check(ok, f"{name} {case} {row['dtype']}: max err {err} > tol {tol}")
+        check(ok, f"{name} {case} {row['dtype']}: max err {err} > tol {tol}"
+                  f"{' (or the state)' if state is not None else ''}")
         if main:
             summary[name] = row
 
     # -- 1. prefill flash attention: q [B,S,nh,hd], k/v [B,S,nkv,hd] views
-    for dtype, S in ((torch.bfloat16, 16), (torch.bfloat16, 37),
-                     (torch.bfloat16, 128), (torch.float32, 37),
-                     (torch.float32, 128)):
+    def flash_case(dtype, S, H, G, HD, main):
         qm = randn(1, S, H * G, HD, dtype=dtype)
         km = randn(1, S, H, HD, dtype=dtype)
         vm = randn(1, S, H, HD, dtype=dtype)
@@ -227,17 +291,22 @@ def kernel_cases(dev, flush):
                lambda: flash_attention.flash_attention_plain(q, k, v),
                lambda: F.scaled_dot_product_attention(ql, kl, vl,
                                                       attn_mask=mask),
-               nbytes, flops, main=(dtype == torch.bfloat16 and S == 128))
+               nbytes, flops, main=main)
+
+    for dtype, S in ((torch.bfloat16, 16), (torch.bfloat16, 37),
+                     (torch.bfloat16, 128), (torch.float32, 37),
+                     (torch.float32, 128)):
+        flash_case(dtype, S, H, G, HD,
+                   main=(dtype == torch.bfloat16 and S == 128))
+    for dtype, S in ((torch.bfloat16, 113), (torch.float32, 37)):
+        flash_case(dtype, S, Z_H, 1, Z_HD, main=False)     # zamba2's block
 
     # -- 2. slot decode attention over the stacked cache's [B,C,nkv,hd]:
     # batch 1 (DecodeEngine) and the continuous engine's 8 slot rows at
     # ragged positions, each with its own valid row
     C = 2048
-    for dtype, B, n_valid in ((torch.bfloat16, 1, (17,)),
-                              (torch.bfloat16, 1, (300,)),
-                              (torch.bfloat16, 8, tuple(p + 1 for p in POS)),
-                              (torch.float32, 1, (300,)),
-                              (torch.float32, 2, (45, 1500))):
+
+    def decode_case(dtype, B, n_valid, H, G, HD, main):
         q = randn(B, H, G, HD, dtype=dtype)
         kc = randn(B, C, H, HD, dtype=dtype)
         vc = randn(B, C, H, HD, dtype=dtype)
@@ -266,8 +335,17 @@ def kernel_cases(dev, flush):
                                                                valid),
                lambda: F.scaled_dot_product_attention(ql, kl, vl,
                                                       attn_mask=lmask),
-               nbytes, flops,
-               main=(dtype == torch.bfloat16 and n_valid == (300,)))
+               nbytes, flops, main=main)
+
+    for dtype, B, n_valid in ((torch.bfloat16, 1, (17,)),
+                              (torch.bfloat16, 1, (300,)),
+                              (torch.bfloat16, 8, tuple(p + 1 for p in POS)),
+                              (torch.float32, 1, (300,)),
+                              (torch.float32, 2, (45, 1500))):
+        decode_case(dtype, B, n_valid, H, G, HD,
+                    main=(dtype == torch.bfloat16 and n_valid == (300,)))
+    for dtype in (torch.bfloat16, torch.float32):        # zamba2's block
+        decode_case(dtype, 1, (300,), Z_H, 1, Z_HD, main=False)
 
     # -- 3. paged decode attention over one layer of the engine's pool:
     # 8 slots of a 2048-token table (bs 16, n_bt 128) over P = 1024 blocks
@@ -324,9 +402,7 @@ def kernel_cases(dev, flush):
                        "(index) and scaled_dot_product_attention")
 
     # -- 4. fused SwiGLU FFN, E = 1: T = 1 at decode, T = S at prefill
-    for dtype, T in ((torch.bfloat16, 1), (torch.bfloat16, 37),
-                     (torch.bfloat16, 128), (torch.float32, 1),
-                     (torch.float32, 128)):
+    def ffn_case(dtype, T, D, DFF, main):
         x = randn(1, T, D, dtype=dtype)
         wg = randn(1, D, DFF, dtype=dtype, scale=D ** -0.5)
         wu = randn(1, D, DFF, dtype=dtype, scale=D ** -0.5)
@@ -343,39 +419,215 @@ def kernel_cases(dev, flush):
         record("fused_ffn", f"E=1 T={T} d={D} d_ff={DFF}", dtype, got, want,
                tol, reason, lambda: ff(x, wg, wu, wd),
                lambda: fused_ffn.fused_ffn_plain(x, wg, wu, wd), None,
-               nbytes, flops, main=(dtype == torch.bfloat16 and T == 1))
+               nbytes, flops, main=main)
+
+    for dtype, T in ((torch.bfloat16, 1), (torch.bfloat16, 37),
+                     (torch.bfloat16, 128), (torch.float32, 1),
+                     (torch.float32, 128)):
+        ffn_case(dtype, T, D, DFF, main=(dtype == torch.bfloat16 and T == 1))
+    for dtype, T in ((torch.bfloat16, 1), (torch.bfloat16, 37),
+                     (torch.float32, 1)):
+        ffn_case(dtype, T, Z_D, Z_DFF, main=False)       # zamba2's block
+
+    # -- 5. the scans at the recurrent prefills' shapes (B = 1), in the
+    # models' layouts: [B, S, H, ...] viewed as [B, H, S, ...]
+    for dtype in (torch.bfloat16, torch.float32):
+        for S in SCAN_S:
+            main = dtype == torch.bfloat16 and S == 113
+            # rwkv6: decays -exp(1.5 N - 2), from ~0 down to ~-12 per token
+            r, k, v = (randn(1, S, RWKV_H, RWKV_HD, dtype=dtype, scale=0.5)
+                       .transpose(1, 2) for _ in range(3))
+            la = -torch.exp(randn(1, S, RWKV_H, RWKV_HD, dtype=torch.float32,
+                                  scale=1.5) - 2.0).transpose(1, 2)
+            u = randn(RWKV_H, RWKV_HD, dtype=torch.float32,
+                      scale=0.3)[None].expand(1, RWKV_H, RWKV_HD)
+            got, gs = rwkv6_scan.rwkv6_scan(r, k, v, la, u)
+            want, ws = rwkv6_scan.rwkv6_scan_plain(r, k, v, la, u)
+            el = r.element_size()
+            # r, k, v, y in the dtype; la, u, the final state in f32
+            nbytes = RWKV_H * (4 * S * RWKV_HD * el + S * RWKV_HD * 4
+                               + RWKV_HD * 4 + RWKV_HD * RWKV_HD * 4)
+            # the recurrence: 7 hd^2 per token and head
+            flops = 7 * RWKV_H * S * RWKV_HD * RWKV_HD
+            record("rwkv6_scan", f"B=1 H={RWKV_H} S={S} hd={RWKV_HD}", dtype,
+                   got, want, scan_tol("rwkv6_scan", dtype, want),
+                   SCAN_REASON[dtype],
+                   lambda: rwkv6_scan.rwkv6_scan(r, k, v, la, u),
+                   lambda: rwkv6_scan.rwkv6_scan_plain(r, k, v, la, u), None,
+                   nbytes, flops, main=main, state=(gs, ws))
+            # ssd: dt = softplus(N - 2), A = -1; B/C one row for all heads
+            x = randn(1, S, SSD_H, SSD_HD, dtype=dtype).transpose(1, 2)
+            dt = F.softplus(randn(1, S, SSD_H, dtype=torch.float32) - 2.0) \
+                .transpose(1, 2)
+            a = -dt
+            bc = randn(1, S, 2 * SSD_DS, dtype=dtype)
+            Bm = bc[..., :SSD_DS][:, None].expand(1, SSD_H, S, SSD_DS)
+            Cm = bc[..., SSD_DS:][:, None].expand(1, SSD_H, S, SSD_DS)
+            got, gs = ssd_scan.ssd_scan(x, dt, a, Bm, Cm)
+            want, ws = ssd_scan.ssd_scan_plain(x, dt, a, Bm, Cm)
+            el = x.element_size()
+            # x, y per head in the dtype, dt and a in f32, B and C once
+            # (shared by the heads), the final state in f32
+            nbytes = (SSD_H * (2 * S * SSD_HD * el + 2 * S * 4
+                               + SSD_HD * SSD_DS * 4) + 2 * S * SSD_DS * el)
+            # the recurrence: 5 hd ds per token and head
+            flops = 5 * SSD_H * S * SSD_HD * SSD_DS
+            record("ssd_scan", f"B=1 H={SSD_H} S={S} hd={SSD_HD} "
+                   f"ds={SSD_DS}", dtype, got, want,
+                   scan_tol("ssd_scan", dtype, want), SCAN_REASON[dtype],
+                   lambda: ssd_scan.ssd_scan(x, dt, a, Bm, Cm),
+                   lambda: ssd_scan.ssd_scan_plain(x, dt, a, Bm, Cm), None,
+                   nbytes, flops, main=main, state=(gs, ws))
     return rows, summary
 
 
-def model_phase(dev, cfg, params) -> dict:
-    """Full-width f32 qwen3-0.6b: kernels against force_ref, teacher-forced
-    on the reference's greedy tokens."""
+def _greedy_run(cfg, params, prompt, force_ref, teacher=None):
+    """Prefill plus 8 decode steps; returns (logits per step, greedy
+    tokens). With ``teacher`` (a token list) the steps are fed those
+    tokens instead of their own argmax."""
     from repro_torch.models import decode_step, forward
 
+    out = forward(cfg, params, prompt, return_cache=True, cache_capacity=64,
+                  force_ref=force_ref)
+    logits, cache = [out.logits], out.cache
+    toks = [out.logits[:, -1:].argmax(-1)]
+    for i in range(8):
+        tok = toks[-1] if teacher is None else teacher[i]
+        step = decode_step(cfg, params, tok, cache, force_ref=force_ref)
+        logits.append(step.logits)
+        toks.append(step.logits.argmax(-1))
+        cache = step.cache
+    return logits, toks
+
+
+def _max_err(a: list, b: list) -> float:
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def scan_in_situ(cfg, params, prompt) -> dict:
+    """Every scan of the reference path's prefill, held against the kernel
+    on the very same activations at the scan tolerances: the kernel's
+    error in the model, free of what the model's layers make of it."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import forward
+
+    name = "rwkv6_scan" if cfg.backbone_kind == "rwkv6" else "ssd_scan"
+    orig = getattr(ops, name)
+    rows = []
+
+    def both(*args, force_ref=False):
+        want = orig(*args, force_ref=True)
+        got = orig(*args)
+        ey, oky = compare(got[0], want[0], *scan_tol(name, torch.float32,
+                                                     want[0]))
+        es, oks = compare(got[1], want[1], STATE_TOL, STATE_TOL)
+        rows.append((ey, float(want[0].abs().max()), es, oky and oks))
+        return want
+    setattr(ops, name, both)
+    try:
+        forward(cfg, params, prompt, force_ref=True)
+    finally:
+        setattr(ops, name, orig)
+    return {"kernel": name, "calls": len(rows),
+            "y_max_abs_err": max(r[0] for r in rows),
+            "y_max_abs": max(r[1] for r in rows),
+            "state_max_abs_err": max(r[2] for r in rows),
+            "ok": all(r[3] for r in rows)}
+
+
+def _double(tree):
+    if isinstance(tree, dict):
+        return {k: _double(v) for k, v in tree.items()}
+    return tree.double()
+
+
+def f64_witness(cfg, params, prompt, f32_prefill: dict) -> dict:
+    """Prefill logits of each f32 evaluation (``f32_prefill``: name ->
+    [1, S, V]) against the sequential reference run in f64, and the
+    chunked scan (the plain version, the kernel's arithmetic) run in f64
+    against the same: whether the f32 evaluations part by rounding or by
+    the scan's form. RWKV6 only (its model computes in f64 when fed f64
+    weights); the kernel takes no f64, so its f32 path stands for it."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain
+    from repro_torch.models import forward
+
+    V = cfg.vocab_size                      # padded columns hold -1e30
+    p64 = _double(params)
+    exact = forward(cfg, p64, prompt, force_ref=True).logits[..., :V]
+    kernel, ops._rwkv = ops._rwkv, rwkv6_scan_plain
+    try:
+        chunked = forward(cfg, p64, prompt).logits[..., :V]
+    finally:
+        ops._rwkv = kernel
+    del p64
+    out = {f"{name}_f32_vs_f64_ref": float((x[..., :V].double() - exact)
+                                           .abs().max())
+           for name, x in f32_prefill.items()}
+    out["chunked_f64_vs_f64_ref"] = float((chunked - exact).abs().max())
+    out["f64_ref_logits_max_abs"] = float(exact.abs().max())
+    return out
+
+
+def model_phase(dev, cfg, params) -> dict:
+    """A full-width f32 model: the kernel path against force_ref, prefill
+    plus 8 decode steps teacher-forced on the reference's greedy tokens;
+    the kernel path's launches counted. For a scan family, also every
+    scan in situ (scan_in_situ) and the f32 floor: the same comparison
+    with each scan's plain version in place of its kernel, i.e. two exact
+    f32 evaluations in other summation orders."""
+    from repro_torch.kernels import LAUNCHES, ops, reset_launches
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+
     prompt = torch.as_tensor(np.arange(37) % 97 + 1, device=dev)[None]
-    ref = forward(cfg, params, prompt, return_cache=True, cache_capacity=64,
-                  force_ref=True)
-    ker = forward(cfg, params, prompt, return_cache=True, cache_capacity=64)
-    err = float((ref.logits - ker.logits).abs().max())
-    scale = float(ref.logits.abs().max())
-    tok = ref.logits[:, -1:].argmax(-1)
-    agree = bool(torch.equal(ker.logits[:, -1:].argmax(-1), tok))
-    cr, ck = ref.cache, ker.cache
-    for _ in range(8):
-        r = decode_step(cfg, params, tok, cr, force_ref=True)
-        k = decode_step(cfg, params, tok, ck)
-        err = max(err, float((r.logits - k.logits).abs().max()))
-        scale = max(scale, float(r.logits.abs().max()))
-        tok = r.logits.argmax(-1)
-        agree &= bool(torch.equal(k.logits.argmax(-1), tok))
-        cr, ck = r.cache, k.cache
+    ref, toks = _greedy_run(cfg, params, prompt, True)
+    reset_launches()
+    ker, ker_toks = _greedy_run(cfg, params, prompt, False, teacher=toks)
+    launches = dict(LAUNCHES)
+    err = _max_err(ref, ker)
+    agree = all(torch.equal(a[:, -1:].argmax(-1), b[:, -1:].argmax(-1))
+                for a, b in zip(ref, ker))
     out = {"phase": "model", "arch": cfg.arch_id, "dtype": "float32",
            "prompt_len": 37, "decode_steps": 8,
-           "logits_max_abs_err": err, "logits_max_abs": scale,
+           "logits_max_abs_err": err,
+           "logits_max_abs": max(float(x.abs().max()) for x in ref),
            "tol": LOGIT_TOL, "tol_reason": LOGIT_REASON,
-           "greedy_tokens_agree": agree}
+           "greedy_tokens_agree": agree, "launches": launches}
+    scan_family = cfg.backbone_kind != "attn"
+    if scan_family:
+        out["scan_in_situ"] = scan_in_situ(cfg, params, prompt)
+        kernels = ops._rwkv, ops._ssd
+        ops._rwkv, ops._ssd = rwkv6_scan_plain, ssd_scan_plain
+        try:
+            plain, _ = _greedy_run(cfg, params, prompt, False, teacher=toks)
+        finally:
+            ops._rwkv, ops._ssd = kernels
+        out["plain_path_logits_max_abs_err"] = _max_err(ref, plain)
+    if cfg.backbone_kind == "rwkv6":
+        out["tol"] = RWKV_FLOOR_FACTOR * out["plain_path_logits_max_abs_err"]
+        out["tol_reason"] = RWKV_LOGIT_REASON
+        w = out["f64_witness"] = f64_witness(
+            cfg, params, prompt,
+            {"reference": ref[0], "kernel": ker[0], "plain": plain[0]})
     print(json.dumps(out))
-    check(err <= LOGIT_TOL, f"model logits err {err} > {LOGIT_TOL}")
+    check(agree, f"{cfg.arch_id} model: greedy tokens differ")
+    if scan_family:
+        check(out["scan_in_situ"]["ok"],
+              f"{cfg.arch_id} model: a scan in situ is out of tolerance "
+              f"{out['scan_in_situ']}")
+    check(err <= out["tol"],
+          f"{cfg.arch_id} model logits err {err} > {out['tol']}")
+    if cfg.backbone_kind == "rwkv6":
+        check(w["chunked_f64_vs_f64_ref"] <= LOGIT_TOL,
+              f"{cfg.arch_id} model: the chunked scan in f64 is "
+              f"{w['chunked_f64_vs_f64_ref']} from the f64 reference")
+        f32_floor = max(w["reference_f32_vs_f64_ref"],
+                        w["plain_f32_vs_f64_ref"])
+        check(w["kernel_f32_vs_f64_ref"] <= RWKV_FLOOR_FACTOR * f32_floor,
+              f"{cfg.arch_id} model: the kernel path is "
+              f"{w['kernel_f32_vs_f64_ref']} from the f64 reference, over "
+              f"{RWKV_FLOOR_FACTOR} x the f32 evaluations' {f32_floor}")
     return out
 
 
@@ -431,8 +683,10 @@ def paged_model_phase(dev, cfg, params) -> dict:
     return out
 
 
-def serve_phase(dev) -> dict:
-    """The main path: allocator -> scheduler -> LLMServer -> DecodeEngine."""
+def serve_phase(dev, arch: str, kernels: tuple) -> dict:
+    """The main path of ``arch`` at full width in bf16: allocator ->
+    scheduler -> LLMServer -> DecodeEngine. Each of ``kernels`` must be
+    launched on it."""
     from repro_torch.configs import get_config
     from repro_torch.core import paper_problem
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -440,7 +694,7 @@ def serve_phase(dev) -> dict:
     from repro_torch.queueing_sim import generate_stream
     from repro_torch.serving import DecodeEngine, LLMServer, ServerConfig
 
-    cfg = get_config("qwen3-0.6b")
+    cfg = get_config(arch)
     params = init_params(cfg, seed=0, device=dev)
     engine = DecodeEngine(cfg, params, cache_capacity=2048, chunk=16)
     engine.generate(np.ones((1, 16), np.int32), [4], max_extra_tokens=0)
@@ -490,10 +744,11 @@ def serve_phase(dev) -> dict:
            "launches": launches,
            "prompt_lens": [q.prompt_len for q in stream.queries]}
     print(json.dumps(out))
-    for name in ("flash_attention", "decode_attention", "fused_ffn"):
+    for name in kernels:
         check(launches.get(name, 0) > 0,
-              f"{name} was launched 0 times on the main path")
-    print(json.dumps(decode_step_breakdown(engine, prefill)))
+              f"{name} was launched 0 times on the {arch} main path")
+    print(json.dumps({**decode_step_breakdown(engine, prefill),
+                      "arch": arch}))
     return out
 
 
@@ -580,7 +835,7 @@ def continuous_serve_phase(dev, cfg, params) -> dict:
     check(rep.n == 8, f"served {rep.n} of 8 requests")
     steps = launches.get("paged_decode_attention", 0) // cfg.n_layers
     out = {"phase": "continuous_serve", "arch": cfg.arch_id,
-           "dtype": cfg.dtype, "engine": "ContinuousBatchingEngine("
+           "n_layers": cfg.n_layers, "dtype": cfg.dtype, "engine": "ContinuousBatchingEngine("
            "paged=True, max_slots=8, capacity=2048, block_size=16, "
            "chunk=16)", "batch_size": 8,
            "report": dataclasses.asdict(rep),
@@ -589,10 +844,9 @@ def continuous_serve_phase(dev, cfg, params) -> dict:
            "tokens_per_s": rep.tokens_generated / wall,
            "launches": launches}
     print(json.dumps(out))
-    for name in REPLACES:
-        if name != "decode_attention":          # the slot kernel
-            check(launches.get(name, 0) > 0,
-                  f"{name} was launched 0 times on the continuous path")
+    for name in ("flash_attention", "fused_ffn", "paged_decode_attention"):
+        check(launches.get(name, 0) > 0,
+              f"{name} was launched 0 times on the continuous path")
     out["budgets"] = {c.rid: c.budget for c in srv.completed}
     out["stream"] = stream
     return out
@@ -615,7 +869,8 @@ def rolling_drain_phase(dev, cfg, params, served, n_blocks: int = 64) -> dict:
     reqs = [(q.qid, np.arange(q.prompt_len) % 97 + 1, budgets[q.qid], 8)
             for q in served["stream"].queries]
     need = [r[1].size + r[2] + r[3] - 1 for r in reqs]
-    out = {"phase": "rolling_drain", "requests": len(reqs),
+    out = {"phase": "rolling_drain", "arch": cfg.arch_id,
+           "n_layers": cfg.n_layers, "requests": len(reqs),
            "tokens_needed": sum(need),
            "blocks_needed": sum(math.ceil(n / 16) for n in need),
            "pool_blocks": n_blocks, "pool_tokens": n_blocks * 16}
@@ -714,6 +969,10 @@ REPLACES = {
         "src/repro/kernels/decode_attention.py:114"),
     "fused_ffn": ("src/repro_torch/csrc/fused_ffn.cu",
                   "src/repro/kernels/fused_ffn.py:57"),
+    "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",
+                   "src/repro/kernels/rwkv6_scan.py:73"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:77"),
 }
 
 
@@ -744,22 +1003,46 @@ def main() -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
-    cfg32 = dataclasses.replace(get_config("qwen3-0.6b"), dtype="float32")
-    params32 = init_params(cfg32, seed=0, device=dev)
+
+    def f32_model(arch):
+        cfg32 = dataclasses.replace(get_config(arch), dtype="float32")
+        return cfg32, init_params(cfg32, seed=0, device=dev)
+
+    cfg32, params32 = f32_model("qwen3-0.6b")
     model_phase(dev, cfg32, params32)
     paged_model_phase(dev, cfg32, params32)
     del params32
     torch.cuda.empty_cache()
 
-    served = serve_phase(dev)
-    cfg = get_config("qwen3-0.6b")
+    attn_kernels = ("flash_attention", "decode_attention", "fused_ffn")
+    served = serve_phase(dev, "qwen3-0.6b", attn_kernels)
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"),
+                              n_layers=QWEN3_BATCHED_LAYERS)
     params = init_params(cfg, seed=0, device=dev)
     continuous = continuous_serve_phase(dev, cfg, params)
     rolling_drain_phase(dev, cfg, params, continuous)
+    del params
+    torch.cuda.empty_cache()
+
+    # the recurrent and hybrid paths: each model freed before the next
+    by_path = {"qwen3-0.6b serve": served["launches"],
+               "qwen3-0.6b continuous serve": continuous["launches"]}
+    for arch, kernels in (("rwkv6-1.6b", ("rwkv6_scan",)),
+                          ("zamba2-7b", ("ssd_scan",) + attn_kernels)):
+        cfg32, params32 = f32_model(arch)
+        model_phase(dev, cfg32, params32)
+        del params32
+        torch.cuda.empty_cache()
+        by_path[f"{arch} serve"] = serve_phase(dev, arch, kernels)["launches"]
+        torch.cuda.empty_cache()
     # each kernel's launches on the path that runs it: the slot kernels on
-    # the DecodeEngine serve, the paged kernel on the continuous serve
+    # qwen3's DecodeEngine serve, the paged kernel on the continuous serve,
+    # each scan on its family's serve
     launches = {**served["launches"], "paged_decode_attention":
-                continuous["launches"]["paged_decode_attention"]}
+                continuous["launches"]["paged_decode_attention"],
+                "rwkv6_scan": by_path["rwkv6-1.6b serve"]["rwkv6_scan"],
+                "ssd_scan": by_path["zamba2-7b serve"]["ssd_scan"]}
 
     kernels = []
     for name, (source, replaces) in REPLACES.items():
@@ -771,7 +1054,11 @@ def main() -> int:
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"]})
+                        "library_ms": row["library_ms"],
+                        "launches_by_path": {
+                            path: counts[name]
+                            for path, counts in by_path.items()
+                            if counts.get(name)}})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -38,6 +38,13 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
     return dev
 
 
+def acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the dtype the models compute in: f32 for bf16 and f32
+    tensors, as in the JAX package, and f64 for f64 ones, which only a run
+    that measures f32 rounding against an f64 evaluation feeds them."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def torch_dtype(name: str) -> torch.dtype:
     """Config dtype name (``"bfloat16"``, ``"float32"``) -> torch dtype."""
     try:

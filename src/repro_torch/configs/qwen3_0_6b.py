@@ -15,5 +15,6 @@ def config() -> ModelConfig:
         vocab_size=151936,
         qk_norm=True,
         rope_theta=1_000_000.0,
+        tie_embeddings=True,
         source="hf:Qwen/Qwen3-8B",
     )

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port and their plain PyTorch versions.
 
 Each kernel module (``flash_attention``, ``decode_attention`` with the
-slot and the paged kernel, ``fused_ffn``) holds wrappers that launch the
+slot and the paged kernel, ``fused_ffn``, ``rwkv6_scan``, ``ssd_scan``)
+holds wrappers that launch the
 CUDA kernels built from ``repro_torch/csrc`` for a CUDA tensor, and each
 kernel's plain PyTorch version, which the wrapper takes only for a CPU
 tensor. ``ops`` adapts the

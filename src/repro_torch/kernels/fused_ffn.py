@@ -15,6 +15,8 @@ import torch
 from . import LAUNCHES, _cuda
 
 _BF = 32         # d_ff columns per chunk (csrc/fused_ffn.cu kBF)
+_PARTS = 8       # warps splitting the d reduction (csrc/fused_ffn.cu kParts)
+_SMEM_MAX = 227 * 1024
 
 
 def fused_ffn_plain(x, wg, wu, wd) -> torch.Tensor:
@@ -33,10 +35,18 @@ def fused_ffn(x, wg, wu, wd) -> torch.Tensor:
     return _launch(x, wg, wu, wd)
 
 
-def _launch_shape(n_rows: int, E: int, f: int, sms: int) -> tuple:
-    """(rows per CTA, number of d_ff shares): shares are added until the
-    grid covers about two CTAs per SM."""
+def _smem_bytes(bt: int, d: int) -> int:
+    """Shared memory of a CTA of ``bt`` rows (csrc/fused_ffn.cu smem_bytes)."""
+    return 4 * bt * (2 * d + 2 * _PARTS * _BF + _BF)
+
+
+def _launch_shape(n_rows: int, E: int, f: int, sms: int, d: int) -> tuple:
+    """(rows per CTA, number of d_ff shares): the row tile is cut until its
+    shared memory fits a CTA (at d = 3584 a 16-row tile needs 482 KB), and
+    shares are added until the grid covers about two CTAs per SM."""
     bt = 1 if n_rows == 1 else (4 if n_rows <= 4 else 16)
+    while bt > 1 and _smem_bytes(bt, d) > _SMEM_MAX:
+        bt //= 4
     tiles = -(-n_rows // bt) * E
     n_chunks = -(-f // _BF)
     return bt, max(1, min(n_chunks, -(-2 * sms // tiles)))
@@ -55,7 +65,8 @@ def _launch(x, wg, wu, wd):
     for arg, t in (("x", x), ("wg", wg), ("wu", wu), ("wd", wd)):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-    bt, n_split = _launch_shape(T, E, f, _cuda.sm_count(dev.index or 0))
+    bt, n_split = _launch_shape(T, E, f, _cuda.sm_count(dev.index or 0),
+                                 d)
     y = torch.empty_like(x)
     scratch = torch.empty(n_split * E * T * d, dtype=torch.float32,
                           device=dev)

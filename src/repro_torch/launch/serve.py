@@ -7,6 +7,8 @@ its published widths (random weights from --seed) on --device, which
 defaults to cuda; --reduced gives the 2-layer CPU test variant.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --real-engine --queries 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --real-engine \\
+        --arch rwkv6-1.6b --queries 8          # or --arch zamba2-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
         --real-engine --queries 3
 """
@@ -17,7 +19,7 @@ import dataclasses
 import json
 
 from ..compat import resolve_device
-from ..configs import get_config
+from ..configs import ARCH_IDS, get_config
 from ..core import paper_problem
 from ..models import init_params, reduced
 from ..queueing_sim import DISCIPLINES, generate_stream, pk_prediction
@@ -33,7 +35,7 @@ def main(argv=None):
     ap.add_argument("--batch-size", type=int, default=1)
     ap.add_argument("--online", action="store_true")
     ap.add_argument("--real-engine", action="store_true")
-    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--arch", default="qwen3-0.6b", choices=ARCH_IDS)
     ap.add_argument("--reduced", action="store_true",
                     help="2-layer, d_model 256, f32 variant (CPU tests)")
     ap.add_argument("--device", default="cuda")

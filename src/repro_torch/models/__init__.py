@@ -1,10 +1,16 @@
-"""Dense GQA decoder (the slice of ``repro.models`` the serving paths run)."""
+"""The ported model families: the dense GQA decoder, RWKV6 and the Mamba2 +
+shared-attention hybrid (the slices of ``repro.models`` the serving paths
+run)."""
 from .attention import (KVCache, PagedKVCache, init_cache,
                         init_paged_cache)
 from .config import ModelConfig, reduced
+from .mamba2 import MambaCache
+from .rwkv6 import RWKVCache
 from .sampling import fold_sample, sample
-from .transformer import ModelOutput, decode_step, forward, init_params
+from .transformer import (ModelOutput, decode_step, forward,
+                          init_decode_cache, init_params)
 
 __all__ = ["ModelConfig", "reduced", "init_params", "forward", "decode_step",
-           "ModelOutput", "sample", "fold_sample", "KVCache", "init_cache",
-           "PagedKVCache", "init_paged_cache"]
+           "init_decode_cache", "ModelOutput", "sample", "fold_sample",
+           "KVCache", "init_cache", "PagedKVCache", "init_paged_cache",
+           "RWKVCache", "MambaCache"]

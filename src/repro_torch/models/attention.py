@@ -160,9 +160,12 @@ def attn_forward(cfg: ModelConfig, p: dict, x: Tensor,
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
-               device, dtype=None) -> KVCache:
-    """Zeroed layer-stacked dense cache at position 0."""
-    shape = (cfg.n_layers, batch, capacity, cfg.n_kv_heads, cfg.hd)
+               device, dtype=None, n_layers: Optional[int] = None) -> KVCache:
+    """Zeroed layer-stacked dense cache at position 0, with ``n_layers``
+    layers (default ``cfg.n_layers``; the hybrid's shared block has one per
+    application)."""
+    L = cfg.n_layers if n_layers is None else n_layers
+    shape = (L, batch, capacity, cfg.n_kv_heads, cfg.hd)
     dtype = dtype or cfg.tdtype
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
@@ -177,7 +180,7 @@ def cache_from_prefill(cfg: ModelConfig, k: Tensor, v: Tensor,
     if S > capacity:
         raise ValueError(f"prompt length {S} exceeds cache capacity "
                          f"{capacity}")
-    cache = init_cache(cfg, B, capacity, k.device, k.dtype)
+    cache = init_cache(cfg, B, capacity, k.device, k.dtype, n_layers=L)
     cache.k[:, :, :S] = k
     cache.v[:, :, :S] = v
     return cache._replace(length=S)

@@ -1,11 +1,17 @@
-"""Model configuration for the dense decoder slice of the port.
+"""Model configuration for the families the port runs.
 
-The fields mirror ``repro.models.config.ModelConfig`` for the dense GQA
-transformer the port runs: RMS norm, SwiGLU MLP, tied embeddings, full
-(not sliding-window) attention. The JAX package's kernel flags
-(``use_kernels``, ``use_decode_kernel``) have no counterpart: in the port
-the device decides, and on a CUDA device the model always goes through
-the Hopper kernels.
+The fields mirror ``repro.models.config.ModelConfig`` for the three
+families that are ported: the dense GQA transformer (``dense``: RMS norm,
+SwiGLU MLP, full attention), the recurrent stack (``ssm``: RWKV6 blocks
+when the config carries an ``RWKVConfig``, Mamba2 otherwise) and the hybrid (``hybrid``: a
+Mamba2 backbone plus ONE weight-shared attention+MLP block applied after
+every ``attn_every`` Mamba2 layers, Zamba2-style). The JAX package's
+kernel flags (``use_kernels``, ``use_decode_kernel``) have no counterpart:
+in the port the device decides, and on a CUDA device the model always
+goes through the Hopper kernels. Two differences from the JAX config:
+the ``ssm`` and ``rwkv`` sub-configs are set only for a family that reads
+them (the JAX package chooses the recurrent block by the arch id), and
+``SSMConfig`` has no chunk length, since the SSD kernel chooses its own.
 """
 from __future__ import annotations
 
@@ -16,6 +22,24 @@ import torch
 
 from ..compat import torch_dtype
 
+#: families the port runs; the JAX package's others raise in ``validate``
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 64             # Mamba2 SSD state per head
+    d_conv: int = 4               # causal conv width
+    expand: int = 2               # d_inner = expand * d_model
+    head_dim: int = 64            # SSD head dim (the SSD kernel picks its
+                                  # own chunk length)
+
+
+@dataclasses.dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64
+    decay_lora: int = 64          # rank of the data-dependent decay LoRA
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -23,13 +47,17 @@ class ModelConfig:
     family: str
     n_layers: int
     d_model: int
-    n_heads: int                  # query heads
+    n_heads: int                  # query heads (0 for attention-free)
     n_kv_heads: int
     d_ff: int
     vocab_size: int
     head_dim: Optional[int] = None          # default d_model // n_heads
     qk_norm: bool = False
     rope_theta: float = 10_000.0
+    attn_every: int = 1                     # hybrid: shared attn every k
+    tie_embeddings: bool = False
+    ssm: Optional[SSMConfig] = None         # set for a Mamba2 backbone
+    rwkv: Optional[RWKVConfig] = None       # set for an RWKV6 backbone
     dtype: str = "bfloat16"
     source: str = ""
 
@@ -49,14 +77,40 @@ class ModelConfig:
         never valid targets; the sampler masks them."""
         return ((self.vocab_size + 127) // 128) * 128
 
+    @property
+    def block_kinds(self) -> tuple:
+        """Per-layer block kinds. The hybrid stack is a Mamba2 backbone; its
+        shared attention block is not one of the layers."""
+        if self.family == "ssm":
+            kind = "rwkv6" if self.rwkv is not None else "mamba2"
+            return (kind,) * self.n_layers
+        if self.family == "hybrid":
+            return ("mamba2",) * self.n_layers
+        return ("attn",) * self.n_layers
+
+    @property
+    def backbone_kind(self) -> str:
+        return self.block_kinds[0]
+
+    @property
+    def has_shared_attn(self) -> bool:
+        return self.family == "hybrid"
+
     def validate(self) -> None:
-        if self.family != "dense":
+        if self.family not in PORTED_FAMILIES:
             raise NotImplementedError(
-                f"family {self.family!r} is not ported; only dense is")
+                f"family {self.family!r} is not ported; the port runs "
+                f"{', '.join(PORTED_FAMILIES)}")
         if not (self.d_model > 0 and self.n_layers > 0 and self.vocab_size > 0):
             raise ValueError("d_model, n_layers and vocab_size must be > 0")
-        if self.n_heads <= 0 or self.n_heads % self.n_kv_heads:
-            raise ValueError("GQA grouping needs n_kv_heads | n_heads")
+        if self.backbone_kind == "attn" or self.has_shared_attn:
+            if (self.n_heads <= 0 or self.n_kv_heads <= 0
+                    or self.n_heads % self.n_kv_heads):
+                raise ValueError("GQA grouping needs n_kv_heads | n_heads")
+        if self.has_shared_attn and self.attn_every < 1:
+            raise ValueError("attn_every must be >= 1")
+        if self.backbone_kind == "mamba2" and self.ssm is None:
+            raise ValueError("a Mamba2 backbone needs an SSMConfig")
 
 
 def reduced(cfg: ModelConfig, n_layers: int = 2,
@@ -68,6 +122,10 @@ def reduced(cfg: ModelConfig, n_layers: int = 2,
     n_kv = max(1, min(cfg.n_kv_heads, n_heads))
     while n_heads % n_kv:
         n_kv -= 1
+    ssm = cfg.ssm and dataclasses.replace(
+        cfg.ssm, d_state=min(cfg.ssm.d_state, 16), head_dim=32)
+    rwkv = cfg.rwkv and dataclasses.replace(cfg.rwkv, head_dim=32,
+                                            decay_lora=16)
     return dataclasses.replace(
         cfg,
         arch_id=cfg.arch_id + "-smoke",
@@ -78,5 +136,6 @@ def reduced(cfg: ModelConfig, n_layers: int = 2,
         head_dim=d_model // n_heads,
         d_ff=max(64, int(cfg.d_ff * scale)),
         vocab_size=min(cfg.vocab_size, 512),
+        ssm=ssm, rwkv=rwkv,
         dtype="float32",
     )

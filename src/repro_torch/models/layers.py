@@ -1,8 +1,10 @@
-"""Shared layers: RMS norm, embedding, RoPE, SwiGLU MLP, tied lm_head."""
+"""Shared layers: RMS norm, embedding, RoPE, SwiGLU MLP, lm_head (tied or
+untied)."""
 from __future__ import annotations
 
 import torch
 
+from ..compat import acc
 from ..kernels import ops as kops
 from .config import ModelConfig
 
@@ -24,16 +26,21 @@ def init_norm(cfg: ModelConfig, lead: tuple, device) -> dict:
 
 
 def apply_norm(cfg: ModelConfig, p: dict, x: Tensor) -> Tensor:
-    xf = x.float()
+    xf = acc(x)
     y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + 1e-6)
-    return (y * p["scale"].float()).to(x.dtype)
+    return (y * acc(p["scale"])).to(x.dtype)
 
 
 # ------------------------------------------------------------- embedding
 def init_embed(cfg: ModelConfig, gen: torch.Generator) -> dict:
-    """Tied embedding table (the lm_head reads it transposed)."""
-    return {"tok": _he(gen, (cfg.padded_vocab, cfg.d_model), cfg.tdtype,
-                       fan_in=cfg.d_model)}
+    """Embedding table ``tok [V, d]``; with untied embeddings also the head
+    ``head [d, V]`` (a tied lm_head reads ``tok`` transposed)."""
+    p = {"tok": _he(gen, (cfg.padded_vocab, cfg.d_model), cfg.tdtype,
+                    fan_in=cfg.d_model)}
+    if not cfg.tie_embeddings:
+        p["head"] = _he(gen, (cfg.d_model, cfg.padded_vocab), cfg.tdtype,
+                        fan_in=cfg.d_model)
+    return p
 
 
 def embed_tokens(cfg: ModelConfig, p: dict, tokens: Tensor) -> Tensor:
@@ -44,7 +51,8 @@ def lm_head(cfg: ModelConfig, p: dict, x: Tensor) -> Tensor:
     """Logits over the padded vocab; entries >= vocab_size are masked to a
     large negative so sampling never selects padding rows. A plain large
     matmul, left to PyTorch as the JAX package left it to XLA."""
-    logits = torch.matmul(x, p["tok"].T)
+    w = p["tok"].T if cfg.tie_embeddings else p["head"]
+    logits = torch.matmul(x, w)
     if cfg.padded_vocab != cfg.vocab_size:
         valid = torch.arange(cfg.padded_vocab, device=x.device) \
             < cfg.vocab_size

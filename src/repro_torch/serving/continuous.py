@@ -40,11 +40,12 @@ prefills other groups than the slot mode, at other padded shapes and so
 in other summation orders, and a greedy argmax between near-equal logits
 can go the other way.
 
-The port has the dense attention backbone only (``ModelConfig.validate``
-raises for any other family), for which right-padded batched admission is
-exact and every admission batches freely. The JAX package's recurrent,
-windowed and capacity-dispatch MoE branches, and its int8 pools, are not
-ported.
+The engine runs the dense attention backbone only, for which
+right-padded batched admission is exact and every admission batches
+freely; it raises ``NotImplementedError`` for the recurrent and hybrid
+families, which ``DecodeEngine`` serves. The JAX package's recurrent
+admission (equal-length groups), its windowed and capacity-dispatch MoE
+branches, and its int8 pools are not ported (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -152,6 +153,12 @@ class ContinuousBatchingEngine:
                  block_size: int = 16, n_blocks: Optional[int] = None,
                  temperature: float = 0.0, seed: int = 0):
         cfg.validate()
+        if cfg.backbone_kind != "attn" or cfg.has_shared_attn:
+            raise NotImplementedError(
+                f"ContinuousBatchingEngine runs the dense attention backbone "
+                f"only; {cfg.arch_id} ({cfg.family}) needs recurrent-row "
+                f"admission, not ported yet (ROADMAP.md); serve it with "
+                f"DecodeEngine")
         self.cfg = cfg
         self.params = params
         self.device = params["embed"]["tok"].device

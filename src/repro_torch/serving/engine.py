@@ -16,9 +16,10 @@ Two execution paths share one contract, as in ``repro.serving.engine``:
   one host sync per token. With greedy sampling both paths must produce
   the same tokens.
 
-The engine runs on the device its parameters live on: on a CUDA device
-every prefill attention, decode attention and MLP goes through the Hopper
-kernels. The decode cache is updated in place.
+The engine runs every ported family (dense, RWKV6, the Mamba2 hybrid) on
+the device its parameters live on: on a CUDA device every prefill
+attention, wkv or SSD scan, decode attention and SwiGLU MLP goes through
+the Hopper kernels. The decode cache is updated in place.
 """
 from __future__ import annotations
 

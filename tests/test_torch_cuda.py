@@ -3,10 +3,13 @@
 Runs where a CUDA device is (``python -m pytest -q -m cuda
 tests/test_torch_cuda.py``) and skips elsewhere; it imports no JAX, so it
 runs on a machine without it. Shapes are the serving paths' at
-qwen3-0.6b's widths, including ragged prompt lengths, T = 1 and ragged
-paged positions. Tolerances: the repo's kernel tolerances (2e-5 f32, 2e-2
-bf16), except 1e-4 for the f32 FFN, whose 1024- and 3072-term sums run in
-another order than ``torch.matmul``'s. A paged slot with no visible
+qwen3-0.6b's, rwkv6-1.6b's and zamba2-7b's widths, including ragged prompt
+lengths, T = 1 and ragged paged positions. Tolerances: the repo's kernel
+tolerances (2e-5 f32, 2e-2 bf16), except 1e-4 for the f32 FFN, whose
+1024- and 3072-term sums run in another order than ``torch.matmul``'s,
+and tests/test_kernels.py's scan tolerances for the two scans (outputs
+at 1e-4 for rwkv6 and rtol 1e-3, atol 2e-5 * max|y| for SSD in f32,
+rtol 5e-2, atol 5e-2 * max|y| in bf16; states at 1e-3). A paged slot with no visible
 position (all sentinel) is kept out of the comparison: the kernel gives
 it 0 where the plain version, like the TPU kernel, averages a clipped
 block; the engine discards such rows.
@@ -23,6 +26,8 @@ from repro_torch.kernels.decode_attention import (
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.fused_ffn import fused_ffn, fused_ffn_plain
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
 
 @pytest.fixture
@@ -163,3 +168,135 @@ def test_short_paged_drain_exact_budgets(cuda_device):
     assert LAUNCHES["paged_decode_attention"] > 0
     assert eng.check_block_invariants()
     assert eng.allocator.n_free == 8 and eng.allocator.reserved == 0
+
+
+def _scan_tol(want: torch.Tensor, dtype) -> dict:
+    scale = float(want.float().abs().max()) + 1e-6
+    if dtype == torch.float32:
+        return dict(rtol=1e-3, atol=2e-5 * scale)
+    return dict(rtol=5e-2, atol=5e-2 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [18, 113, 128])
+def test_rwkv6_scan_matches_plain(cuda_device, dtype, S):
+    """rwkv6-1.6b's prefill shape: 32 heads of 64, the model's layout
+    [B, S, H, hd] viewed as [B, H, S, hd], u on a batch stride of 0, and
+    decays down to about -5 per token."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    B, H, hd = 1, 32, 64
+
+    def model_view(scale=0.5):
+        return (torch.randn(B, S, H, hd, generator=g, device=cuda_device)
+                * scale).to(dtype).permute(0, 2, 1, 3)
+    r, k, v = model_view(), model_view(), model_view()
+    la = -torch.exp(torch.randn(B, S, H, hd, generator=g, device=cuda_device)
+                    * 1.5 - 2.0).permute(0, 2, 1, 3)
+    u = (0.3 * torch.randn(H, hd, generator=g, device=cuda_device))[None] \
+        .expand(B, H, hd)
+    reset_launches()
+    y, sf = rwkv6_scan(r, k, v, la, u)
+    assert LAUNCHES["rwkv6_scan"] == 1
+    wy, wsf = rwkv6_scan_plain(r, k, v, la, u)
+    tol = (dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32
+           else _scan_tol(wy, dtype))
+    torch.testing.assert_close(y.float(), wy.float(), **tol)
+    torch.testing.assert_close(sf, wsf, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [18, 113, 128])
+def test_ssd_scan_matches_plain(cuda_device, dtype, S):
+    """zamba2-7b's prefill shape: 112 heads of 64, state 64, B/C one
+    [B, S, ds] row shared by the heads (head stride 0)."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    B, H, hd, ds = 1, 112, 64, 64
+    x = torch.randn(B, S, H, hd, generator=g, device=cuda_device) \
+        .to(dtype).permute(0, 2, 1, 3)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=g, device=cuda_device)
+        - 2.0).permute(0, 2, 1)
+    a = -dt
+    bc = torch.randn(B, S, 2 * ds, generator=g, device=cuda_device) \
+        .to(dtype)
+    Bm = bc[..., :ds][:, None].expand(B, H, S, ds)
+    Cm = bc[..., ds:][:, None].expand(B, H, S, ds)
+    reset_launches()
+    y, sf = ssd_scan(x, dt, a, Bm, Cm)
+    assert LAUNCHES["ssd_scan"] == 1
+    wy, wsf = ssd_scan_plain(x, dt, a, Bm, Cm)
+    torch.testing.assert_close(y.float(), wy.float(), **_scan_tol(wy, dtype))
+    torch.testing.assert_close(sf, wsf, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_zamba2_shared_block_shapes_match_plain(cuda_device):
+    """The shared block's kernels at zamba2-7b's widths: flash and slot
+    decode at head_dim 112 (G = 1), the FFN at d 3584 / d_ff 14336 at
+    T = 1 and at a prefill T = 37 (a 4-row tile: 16 rows need more shared
+    memory than a CTA has)."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    H, hd, S, C = 32, 112, 37, 256
+    q = torch.randn(1, S, H, 1, hd, generator=g, device=cuda_device) \
+        .permute(0, 2, 3, 1, 4)
+    kv = torch.randn(2, 1, S, H, hd, generator=g, device=cuda_device)
+    k, v = kv[0].permute(0, 2, 1, 3), kv[1].permute(0, 2, 1, 3)
+    torch.testing.assert_close(flash_attention(q, k, v),
+                               flash_attention_plain(q, k, v),
+                               rtol=2e-5, atol=2e-5)
+    qd = torch.randn(1, H, 1, hd, generator=g, device=cuda_device)
+    cache = torch.randn(2, 1, C, H, hd, generator=g, device=cuda_device)
+    kc, vc = cache[0].permute(0, 2, 1, 3), cache[1].permute(0, 2, 1, 3)
+    valid = torch.arange(C, device=cuda_device)[None] < 113
+    torch.testing.assert_close(decode_attention(qd, kc, vc, valid),
+                               decode_attention_plain(qd, kc, vc, valid),
+                               rtol=2e-5, atol=2e-5)
+    d, f = 3584, 14336
+    for T in (1, 37):
+        x = torch.randn(1, T, d, generator=g, device=cuda_device) \
+            .to(torch.bfloat16)
+        wg, wu = ((torch.randn(1, d, f, generator=g, device=cuda_device)
+                   * d ** -0.5).to(torch.bfloat16) for _ in range(2))
+        wd = (torch.randn(1, f, d, generator=g, device=cuda_device)
+              * f ** -0.5).to(torch.bfloat16)
+        torch.testing.assert_close(fused_ffn(x, wg, wu, wd).float(),
+                                   fused_ffn_plain(x, wg, wu, wd).float(),
+                                   rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
+def test_recurrent_model_decode_kernels_match_reference(cuda_device, arch):
+    """Reduced rwkv6 and the hybrid (5 layers, the shared block every 2),
+    f32: prefill of a prime-length prompt plus 4 decode steps, kernels
+    against force_ref, logits within 1e-3 and the same greedy tokens; the
+    scan kernel and, for the hybrid, the attention and FFN kernels ran."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, forward, init_params, reduced
+
+    cfg = reduced(get_config(arch))
+    if arch == "zamba2-7b":
+        cfg = dataclasses.replace(reduced(get_config(arch), n_layers=5),
+                                  attn_every=2)
+    params = init_params(cfg, 0, cuda_device)
+    prompt = (torch.arange(37, device=cuda_device) % 97 + 1)[None]
+    reset_launches()
+    ker = forward(cfg, params, prompt, return_cache=True, cache_capacity=64)
+    ref = forward(cfg, params, prompt, return_cache=True, cache_capacity=64,
+                  force_ref=True)
+    torch.testing.assert_close(ker.logits, ref.logits, rtol=0, atol=1e-3)
+    tok = ref.logits[:, -1:].argmax(-1)
+    ck, cr = ker.cache, ref.cache
+    for _ in range(4):
+        k = decode_step(cfg, params, tok, ck)
+        r = decode_step(cfg, params, tok, cr, force_ref=True)
+        torch.testing.assert_close(k.logits, r.logits, rtol=0, atol=1e-3)
+        assert torch.equal(k.logits.argmax(-1), r.logits.argmax(-1))
+        tok, ck, cr = r.logits.argmax(-1), k.cache, r.cache
+    scan = "rwkv6_scan" if arch == "rwkv6-1.6b" else "ssd_scan"
+    assert LAUNCHES[scan] == cfg.n_layers
+    if arch == "zamba2-7b":
+        for name in ("flash_attention", "decode_attention", "fused_ffn"):
+            assert LAUNCHES[name] > 0, name

@@ -40,14 +40,18 @@ def test_reduced_config_matches_reference(model):
     jcfg, _, cfg, _ = model
     for f in dataclasses.fields(cfg):
         if f.name != "family" and hasattr(jcfg, f.name):
-            assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+            got, want = getattr(cfg, f.name), getattr(jcfg, f.name)
+            if dataclasses.is_dataclass(want):   # the ssm / rwkv sub-configs
+                assert got is None, f.name       # a dense model reads neither
+                continue
+            assert got == want, f.name
     assert cfg.padded_vocab == jcfg.padded_vocab
     assert cfg.hd == jcfg.hd
 
 
 def test_unported_arch_raises():
     with pytest.raises(KeyError, match="not yet ported"):
-        get_config("rwkv6-1.6b")
+        get_config("deepseek-moe-16b")
 
 
 @pytest.mark.parametrize("use_kernels", [False, True])
