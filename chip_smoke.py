@@ -21,7 +21,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the PyTorch library calls that compute the same function where there
    are such (for paged attention: the dense gather plus SDPA, two calls;
    none for the FFN and the scans), and the bound (the larger of bytes at
-   3.35 TB/s and FLOPs at the card's peak for the dtype);
+   3.35 TB/s and FLOPs at the card's peak for the dtype), after the
+   timer's floor (a one-element kernel timed the same way). The decode
+   rows also give the split plan (n_split, tile, merge route) and cover
+   batch 1 at 17-2000 valid slots, masks that stress the split merge
+   (every valid slot in one split's tiles, a ring window, a dominant
+   score in the last split), and a paged table with sentinel holes and a
+   retired slot, which must read 0;
 4. model: full-width qwen3-0.6b in f32 (random weights from seed 0), one
    prompt, prefill plus 8 greedy decode steps, kernels against the
    reference path (force_ref): logits within 1e-3, greedy tokens equal;
@@ -219,21 +225,28 @@ def kernel_cases(dev, flush):
     Returns (rows, {kernel: row of the JSON summary})."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import (decode_attention, flash_attention,
-                                     fused_ffn, rwkv6_scan, ssd_scan)
+    from repro_torch.kernels import (_cuda, decode_attention,
+                                     flash_attention, fused_ffn, rwkv6_scan,
+                                     ssd_scan)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, summary = [], {}
+    # the timer's floor: one one-element kernel, timed as the rows below
+    tiny = torch.zeros(1, device=dev)
+    print(json.dumps({"phase": "timer_floor", "case": "x.add_(1), 1 element",
+                      "ms": median_ms(lambda: tiny.add_(1), flush)}))
 
     def randn(*shape, dtype, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev)
                 * scale).to(dtype)
 
     def record(name, case, dtype, got, want, tol, reason, fn, plain, lib,
-               nbytes, flops, main, library="one call", state=None):
+               nbytes, flops, main, library="one call", state=None,
+               fields=None):
         """``tol``: one float (atol = rtol), a per-slot tensor of atols, or
         an (atol, rtol) pair. ``state``: the scans' (got, want) final
-        states, held at STATE_TOL."""
+        states, held at STATE_TOL. ``fields``: added to the row (the
+        decode kernels' split plan)."""
         per_slot, extra = {}, {}
         if isinstance(tol, torch.Tensor):            # one tolerance per slot
             err, ok = compare(got, want,
@@ -260,7 +273,9 @@ def kernel_cases(dev, flush):
                "plain_ms": median_ms(plain, flush),
                "library_ms": None if lib is None else median_ms(lib, flush),
                "library": None if lib is None else library,
-               "bound_ms": bms, "bound_by": by}
+               "bound_ms": bms, "bound_by": by, **(fields or {})}
+        if lib is not None:
+            row["beats_library"] = row["ms"] < row["library_ms"]
         print(json.dumps(row))
         rows.append(row)
         check(ok, f"{name} {case} {row['dtype']}: max err {err} > tol {tol}"
@@ -303,16 +318,36 @@ def kernel_cases(dev, flush):
 
     # -- 2. slot decode attention over the stacked cache's [B,C,nkv,hd]:
     # batch 1 (DecodeEngine) and the continuous engine's 8 slot rows at
-    # ragged positions, each with its own valid row
+    # ragged positions, each with its own valid row; then masks that
+    # stress the split-KV merge
     C = 2048
 
-    def decode_case(dtype, B, n_valid, H, G, HD, main):
+    def split_fields(B, H, n_pos, HD, dtype, bs=None):
+        plan = decode_attention.split_plan(B, H, n_pos, HD, dtype,
+                                           _cuda.sm_count(0), block_size=bs)
+        return {"n_split": plan.n_split, "tile": plan.tile,
+                "merge": ("thread block cluster, through distributed "
+                          "shared memory, in split order")
+                if plan.n_split > 1
+                else "none: one split writes the output"}
+
+    def decode_case(dtype, B, n_valid, H, G, HD, main, mask=None,
+                    what=None, dominant=None):
+        """``mask``: a [B, C] valid mask in place of the prefixes
+        ``n_valid`` (then ``what`` names it); ``dominant``: a slot whose
+        key is set to 4 q of head 0, so its score dominates."""
         q = randn(B, H, G, HD, dtype=dtype)
         kc = randn(B, C, H, HD, dtype=dtype)
         vc = randn(B, C, H, HD, dtype=dtype)
         k, v = kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3)
-        lens = torch.tensor(n_valid, device=dev)[:, None]
-        valid = torch.arange(C, device=dev)[None] < lens
+        if dominant is not None:
+            k[:, :, dominant] = q[:, :, 0] * 4
+        if mask is None:
+            lens = torch.tensor(n_valid, device=dev)[:, None]
+            valid = torch.arange(C, device=dev)[None] < lens
+            what = f"valid={list(n_valid)}"
+        else:
+            valid = mask
         da = decode_attention.decode_attention
         got = da(q, k, v, valid)
         want = decode_attention.decode_attention_plain(q, k, v, valid)
@@ -321,24 +356,27 @@ def kernel_cases(dev, flush):
         vl = v.repeat_interleave(G, dim=1)
         lmask = valid[:, None, None, :]
         el = q.element_size()
-        rows_read = sum(n_valid)
+        rows_read = int(valid.sum())
         nbytes = (2 * B * H * G * HD + 2 * rows_read * H * HD) * el + B * C
         flops = 4 * rows_read * H * G * HD
         tol, reason = ((decode_bf16_tol(want), DECODE_BF16_REASON)
                        if dtype == torch.bfloat16
                        else (TOL[dtype], TOL_REASON[dtype]))
         record("decode_attention",
-               f"B={B} C={C} valid={list(n_valid)} H={H} G={G} hd={HD}",
+               f"B={B} C={C} {what} H={H} G={G} hd={HD}",
                dtype, got, want, tol, reason,
                lambda: da(q, k, v, valid),
                lambda: decode_attention.decode_attention_plain(q, k, v,
                                                                valid),
                lambda: F.scaled_dot_product_attention(ql, kl, vl,
                                                       attn_mask=lmask),
-               nbytes, flops, main=main)
+               nbytes, flops, main=main,
+               fields=split_fields(B, H, C, HD, dtype))
 
     for dtype, B, n_valid in ((torch.bfloat16, 1, (17,)),
+                              (torch.bfloat16, 1, (100,)),
                               (torch.bfloat16, 1, (300,)),
+                              (torch.bfloat16, 1, (2000,)),
                               (torch.bfloat16, 8, tuple(p + 1 for p in POS)),
                               (torch.float32, 1, (300,)),
                               (torch.float32, 2, (45, 1500))):
@@ -346,30 +384,59 @@ def kernel_cases(dev, flush):
                     main=(dtype == torch.bfloat16 and n_valid == (300,)))
     for dtype in (torch.bfloat16, torch.float32):        # zamba2's block
         decode_case(dtype, 1, (300,), Z_H, 1, Z_HD, main=False)
+    # merge-adversarial masks at batch 1 (n_split > 1): every valid slot in
+    # split 0's tiles; a ring window; one dominant score in the last split
+    for dtype in (torch.bfloat16, torch.float32):
+        plan = decode_attention.split_plan(1, H, C, HD, dtype,
+                                           _cuda.sm_count(0))
+        check(plan.n_split > 1, f"slot decode at B=1 C={C}: one split")
+        one = torch.zeros(1, C, dtype=torch.bool, device=dev)
+        for t in plan.tiles(0):
+            one[0, t * plan.tile:(t + 1) * plan.tile] = True
+        ring = torch.zeros(1, C, dtype=torch.bool, device=dev)
+        ring[0, 1000:1301] = True
+        last = plan.tiles(plan.n_split - 1)[0] * plan.tile + 5
+        decode_case(dtype, 1, None, H, G, HD, False, mask=one,
+                    what=f"valid=split 0's tiles {list(plan.tiles(0))}")
+        decode_case(dtype, 1, None, H, G, HD, False, mask=ring,
+                    what="valid=1000..1300 (ring window)")
+        decode_case(dtype, 1, None, H, G, HD, False,
+                    mask=torch.arange(C, device=dev)[None] < 2000,
+                    what=f"valid=[2000] dominant slot {last} (last split)",
+                    dominant=last)
 
     # -- 3. paged decode attention over one layer of the engine's pool:
     # 8 slots of a 2048-token table (bs 16, n_bt 128) over P = 1024 blocks
     # (the engine's default pool at 8 slots), ragged positions, tables
-    # drawn from a shuffled pool with sentinels past each slot's last block
+    # drawn from a shuffled pool with sentinels past each slot's last block.
+    # The adversarial table adds sentinel holes inside two slots' rows (a
+    # 64-position tile straddles them) and a retired slot whose entries
+    # are all sentinels at a stale position: it must read 0 and is kept
+    # out of the comparison (the plain version averages a clipped block).
     P, bs, n_bt = 1024, 16, 128
-    pos_list = POS
-    B = len(pos_list)
-    perm = torch.randperm(P, generator=torch.Generator().manual_seed(0))
-    tables = torch.full((B, n_bt), P, dtype=torch.int32)
-    used = 0
-    for b, p in enumerate(pos_list):
-        n = p // bs + 1
-        tables[b, :n] = perm[used:used + n]
-        used += n
-    tables = tables.to(dev)
-    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
-    slots = torch.arange(n_bt * bs, device=dev)
-    lmask = ((slots[None] <= pos[:, None])
-             & (tables < P).repeat_interleave(bs, dim=1))[:, None, None, :]
-    gather = tables.long().clamp(max=P - 1)
     pda = decode_attention.paged_decode_attention
     pda_plain = decode_attention.paged_decode_attention_plain
-    for dtype in (torch.bfloat16, torch.float32):
+
+    def paged_case(dtype, pos_list, main, holes=(), retired=None):
+        B = len(pos_list)
+        perm = torch.randperm(P, generator=torch.Generator().manual_seed(0))
+        tables = torch.full((B, n_bt), P, dtype=torch.int32)
+        used = 0
+        for b, p in enumerate(pos_list):
+            if b == retired:
+                continue
+            n = p // bs + 1
+            tables[b, :n] = perm[used:used + n]
+            used += n
+        for b, j in holes:
+            tables[b, j] = P
+        tables = tables.to(dev)
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+        slots = torch.arange(n_bt * bs, device=dev)
+        vis = ((slots[None] <= pos[:, None])
+               & (tables < P).repeat_interleave(bs, dim=1))
+        lmask = vis[:, None, None, :]
+        gather = tables.long().clamp(max=P - 1)
         q = randn(B, H, G, HD, dtype=dtype)
         # one layer of the engine's [L, P + 1, bs, nkv, hd] pools, as the
         # model passes it: a view without the trash block
@@ -377,6 +444,11 @@ def kernel_cases(dev, flush):
         kp, vp = pool[0, :P], pool[1, :P]
         got = pda(q, kp, vp, tables, pos)
         want = pda_plain(q, kp, vp, tables, pos)
+        keep = [b for b in range(B) if b != retired]
+        if retired is not None and got.is_cuda:     # the plain version
+            check(bool((got[retired] == 0).all()),  # averages a block
+                  "paged decode: the all-sentinel slot is not 0")
+        got, want = got[keep], want[keep]
         ql = q.reshape(B, H * G, 1, HD)
 
         def library(q=ql, kp=kp, vp=vp):
@@ -385,21 +457,30 @@ def kernel_cases(dev, flush):
             return F.scaled_dot_product_attention(q, kd, vd, attn_mask=lmask,
                                                   enable_gqa=True)
         el = q.element_size()
-        rows_read = sum(p + 1 for p in pos_list)
+        rows_read = int(vis.sum())
         nbytes = ((2 * B * H * G * HD + 2 * rows_read * H * HD) * el
                   + tables.numel() * 4 + B * 4)
         flops = 4 * rows_read * H * G * HD
         tol, reason = ((decode_bf16_tol(want), DECODE_BF16_REASON)
                        if dtype == torch.bfloat16
                        else (TOL[dtype], TOL_REASON[dtype]))
+        what = f"pos={list(pos_list)}"
+        if holes or retired is not None:
+            what += f" sentinel holes {list(holes)}, slot {retired} retired"
         record("paged_decode_attention",
-               f"B={B} P={P} bs={bs} n_bt={n_bt} pos={list(pos_list)} "
-               f"H={H} G={G} hd={HD}", dtype, got, want, tol, reason,
+               f"B={B} P={P} bs={bs} n_bt={n_bt} {what} H={H} G={G} "
+               f"hd={HD}", dtype, got, want, tol, reason,
                lambda: pda(q, kp, vp, tables, pos),
                lambda: pda_plain(q, kp, vp, tables, pos), library,
-               nbytes, flops, main=(dtype == torch.bfloat16),
+               nbytes, flops, main=main,
                library="two calls: the k/v gather through the block table "
-                       "(index) and scaled_dot_product_attention")
+                       "(index) and scaled_dot_product_attention",
+               fields=split_fields(B, H, n_bt * bs, HD, dtype, bs=bs))
+
+    for dtype in (torch.bfloat16, torch.float32):
+        paged_case(dtype, POS, main=(dtype == torch.bfloat16))
+        paged_case(dtype, POS[:6] + (2000, 1500), main=False,
+                   holes=((3, 2), (6, 5), (6, 64)), retired=7)
 
     # -- 4. fused SwiGLU FFN, E = 1: T = 1 at decode, T = S at prefill
     def ffn_case(dtype, T, D, DFF, main):

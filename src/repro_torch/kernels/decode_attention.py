@@ -31,14 +31,69 @@ Logical position ``j * bs + off`` of slot ``b`` is visible when it is
 ``<= pos[b]`` and ``block_tables[b, j] < P``. Both kernels mask as the TPU
 kernels do: -1e30 for masked scores, a 1e-30 clamp on the denominator,
 weights rounded to the cache dtype before the P.V product.
+
+On the card both kernels split each row's KV walk across CTAs
+(``split_plan``); the CTAs of one row form a thread block cluster and
+merge their partial softmax states through distributed shared memory, in
+split order, within the one launch.
 """
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import torch
 
 from . import LAUNCHES, _cuda
 
 NEG_INF = -1e30
+#: most splits per (batch, kv head): the largest portable thread block
+#: cluster (``kMaxSplit`` in csrc/decode_split.cuh)
+SPLIT_MAX = 8
+#: fewest splits of a row that holds two tiles or more, so that one long
+#: row never sits on a single CTA when many rows fill the card
+SPLIT_MIN = 2
+#: a tile holds about this many bytes of K rows (64 rows at bf16 hd 128)
+TILE_BYTES = 16384
+MAX_G = 16                       # query heads per kv head (kMaxG)
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """How a decode kernel cuts each (batch, kv head) row's positions:
+    tiles of ``tile`` positions, tile ``t`` walked by split
+    ``t % n_split``."""
+    tile: int
+    n_tiles: int
+    n_split: int
+
+    def tiles(self, split: int) -> range:
+        """The tiles split ``split`` walks, in order."""
+        return range(split, self.n_tiles, self.n_split)
+
+
+def split_plan(B: int, nkv: int, n_pos: int, hd: int, dtype,
+               sm_count: int, block_size: int | None = None) -> SplitPlan:
+    """The split plan, from shapes alone: no tensor is read, so the
+    launch needs no host sync and a CUDA graph could capture it.
+
+    ``n_pos`` is the slot cache's C or the paged table's ``n_bt * bs``.
+    A tile holds about ``TILE_BYTES`` of K rows (64 positions up to
+    256-byte rows); for the paged kernel it is the smallest multiple of
+    ``block_size`` that reaches that, or that many positions inside a
+    larger block. ``n_split`` aims at one CTA per SM (the splits of a row
+    form a cluster that holds its SMs until its slowest split ends, so
+    more CTAs than SMs queue), within ``SPLIT_MIN`` .. ``SPLIT_MAX`` and
+    the tile count. Tiles are dealt round-robin, so a short prefix of a
+    long cache lands on several splits."""
+    row_bytes = hd * torch.finfo(dtype).bits // 8
+    target = min(64, TILE_BYTES // row_bytes)      # hd <= 256: >= 16
+    tile = target
+    if block_size is not None and block_size <= target:
+        tile = block_size * math.ceil(target / block_size)
+    n_tiles = math.ceil(n_pos / tile)
+    want = max(SPLIT_MIN, min(SPLIT_MAX, math.ceil(sm_count / (B * nkv))))
+    return SplitPlan(tile, n_tiles, min(n_tiles, want))
 
 
 def decode_attention_plain(q, k, v, valid) -> torch.Tensor:
@@ -78,19 +133,28 @@ def _launch(q, k, v, valid):
             or not valid.is_contiguous() or valid.device != dev):
         raise ValueError(f"{name}: valid must be a contiguous bool [B, C] "
                          f"tensor on {dev}")
-    if hd > 256:
-        raise ValueError(f"{name}: head_dim {hd} > 256 is not supported")
+    _check_heads(name, G, hd)
+    plan = split_plan(B, H, C, hd, q.dtype, _cuda.sm_count(dev.index or 0))
     out = torch.empty_like(q)
     fn = _cuda.entry(name, "decode_attention_fwd",
                      [_cuda.I] + [_cuda.P] * 5 + [_cuda.LL_PTR]
-                     + [_cuda.I] * 5 + [_cuda.F, _cuda.P])
+                     + [_cuda.I] * 7 + [_cuda.F, _cuda.P])
     st = _cuda.strides((k, (0, 1, 2)), (v, (0, 1, 2)))
     err = fn(_cuda.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
              v.data_ptr(), valid.data_ptr(), out.data_ptr(), st, B, H, G, C,
-             hd, 1.0 / hd ** 0.5, _cuda.stream_ptr(dev))
+             hd, plan.tile, plan.n_split, 1.0 / hd ** 0.5,
+             _cuda.stream_ptr(dev))
     _cuda.raise_on(name, err)
     LAUNCHES[name] += 1
     return out
+
+
+def _check_heads(name: str, G: int, hd: int) -> None:
+    if hd > 256:
+        raise ValueError(f"{name}: head_dim {hd} > 256 is not supported")
+    if G > MAX_G:
+        raise ValueError(f"{name}: {G} query heads per kv head > {MAX_G} "
+                         f"is not supported")
 
 
 def paged_gather(k_pool, v_pool, block_tables, pos):
@@ -155,17 +219,19 @@ def _launch_paged(q, k_pool, v_pool, block_tables, pos):
             or pos.device != dev or not pos.is_contiguous()):
         raise ValueError(f"{name}: pos must be a contiguous int32 [B] "
                          f"tensor on {dev}")
-    if hd > 256:
-        raise ValueError(f"{name}: head_dim {hd} > 256 is not supported")
+    _check_heads(name, G, hd)
+    n_bt = block_tables.shape[1]
+    plan = split_plan(B, H, n_bt * bs, hd, q.dtype,
+                      _cuda.sm_count(dev.index or 0), block_size=bs)
     out = torch.empty_like(q)
     fn = _cuda.entry(name, "paged_decode_attention_fwd",
                      [_cuda.I] + [_cuda.P] * 6 + [_cuda.LL_PTR]
-                     + [_cuda.I] * 7 + [_cuda.F, _cuda.P])
+                     + [_cuda.I] * 9 + [_cuda.F, _cuda.P])
     st = _cuda.strides((k_pool, (0, 1, 2)), (v_pool, (0, 1, 2)))
     err = fn(_cuda.DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
              v_pool.data_ptr(), block_tables.data_ptr(), pos.data_ptr(),
-             out.data_ptr(), st, B, H, G, P, bs, block_tables.shape[1], hd,
-             1.0 / hd ** 0.5, _cuda.stream_ptr(dev))
+             out.data_ptr(), st, B, H, G, P, bs, n_bt, hd, plan.tile,
+             plan.n_split, 1.0 / hd ** 0.5, _cuda.stream_ptr(dev))
     _cuda.raise_on(name, err)
     LAUNCHES[name] += 1
     return out

@@ -12,7 +12,11 @@ at 1e-4 for rwkv6 and rtol 1e-3, atol 2e-5 * max|y| for SSD in f32,
 rtol 5e-2, atol 5e-2 * max|y| in bf16; states at 1e-3). A paged slot with no visible
 position (all sentinel) is kept out of the comparison: the kernel gives
 it 0 where the plain version, like the TPU kernel, averages a clipped
-block; the engine discards such rows.
+block; the engine discards such rows. The split-KV decode cases hold
+bf16 to chip_smoke.py's 2 ulps of each row's largest |out| (at most
+2e-2) and cover head widths 30-256, 1-12 query heads per kv head, the
+stacked cache's and the pool's per-layer views, an unaligned view, masks
+that stress the merge, determinism and the absence of host syncs.
 """
 import dataclasses
 
@@ -300,3 +304,199 @@ def test_recurrent_model_decode_kernels_match_reference(cuda_device, arch):
     if arch == "zamba2-7b":
         for name in ("flash_attention", "decode_attention", "fused_ffn"):
             assert LAUNCHES[name] > 0, name
+
+
+# ---- split-KV decode kernels: widths, views, masks that stress the merge
+def _decode_tol(want: torch.Tensor) -> torch.Tensor:
+    """Per-row absolute tolerance of a decode output [B, ...]: f32 2e-5;
+    bf16 2 ulps of the row's largest |out|, at most 2e-2 (chip_smoke.py's
+    DECODE_BF16_ULPS: kernel and plain round p and out at the same points
+    and differ in f32 summation order and in the running max p is rounded
+    against)."""
+    if want.dtype == torch.float32:
+        return torch.full((want.shape[0],), 2e-5, device=want.device)
+    m = want.float().abs().flatten(1).amax(1).clamp_min(2.0 ** -126)
+    return (2 * torch.exp2(torch.floor(torch.log2(m)) - 7)).clamp_max(2e-2)
+
+
+def _assert_decode_close(got, want, rows=None):
+    if rows is not None:
+        got, want = got[rows], want[rows]
+    tol = _decode_tol(want).view((-1,) + (1,) * (want.dim() - 1))
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= tol).all()), \
+        f"max err {float(err.max())}, per-row tol {tol.flatten().tolist()}"
+
+
+def _slot_case(dev, dtype, B, C, H, G, hd, valid, seed=11, layer=1):
+    """q and layer ``layer`` of a stacked [L, B, C, H, hd] cache pair, as
+    the model passes it: k/v [B, H, C, hd] strided views."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, H, G, hd, generator=g, device=dev).to(dtype)
+    cache = torch.randn(2, 3, B, C, H, hd, generator=g, device=dev).to(dtype)
+    k = cache[0, layer].permute(0, 2, 1, 3)
+    v = cache[1, layer].permute(0, 2, 1, 3)
+    return q, k, v, valid
+
+
+def _prefix_valid(dev, C, lengths):
+    return torch.arange(C, device=dev)[None] \
+        < torch.tensor(lengths, device=dev)[:, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,G", [(64, 4), (112, 1), (128, 2), (256, 2),
+                                  (36, 8), (30, 12)])
+def test_split_decode_widths_match_plain(cuda_device, dtype, hd, G):
+    """The stacked cache's per-layer view at the serve widths (64, 112,
+    128), the widest head (256), a width off the 16-byte vector (36 bf16,
+    30 f32) and 1 to 12 query heads per kv head; one launch counted."""
+    B, C, H = 3, 2048, 4
+    valid = _prefix_valid(cuda_device, C, [1, 700, 2048])
+    q, k, v, valid = _slot_case(cuda_device, dtype, B, C, H, G, hd, valid)
+    reset_launches()
+    got = decode_attention(q, k, v, valid)
+    assert LAUNCHES["decode_attention"] == 1
+    _assert_decode_close(got, decode_attention_plain(q, k, v, valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_decode_unaligned_view_matches_plain(cuda_device, dtype):
+    """A cache view that starts one element off a 16-byte boundary takes
+    the element-wise copy of the same kernel."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    B, C, H, G, hd = 2, 512, 2, 2, 64
+    flat = torch.randn(2 * B * C * H * hd + 1, generator=g,
+                       device=cuda_device).to(dtype)
+    kv = flat[1:].view(2, B, C, H, hd)
+    k, v = kv[0].permute(0, 2, 1, 3), kv[1].permute(0, 2, 1, 3)
+    q = torch.randn(B, H, G, hd, generator=g, device=cuda_device).to(dtype)
+    valid = _prefix_valid(cuda_device, C, [300, 512])
+    _assert_decode_close(decode_attention(q, k, v, valid),
+                         decode_attention_plain(q, k, v, valid))
+
+
+def _adversarial_valid(dev, kind, C, plan):
+    """[1, C] masks that stress the merge: every visible position inside
+    split 0's tiles; a ring window (positions 1000-1300); a full row
+    (the dominant score is planted in the last split by the caller)."""
+    valid = torch.zeros(1, C, dtype=torch.bool, device=dev)
+    if kind == "one_split":
+        for t in plan.tiles(0):
+            valid[0, t * plan.tile:(t + 1) * plan.tile] = True
+    elif kind == "ring":
+        valid[0, 1000:1301] = True
+    else:
+        valid[0, :2000] = True
+    return valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["one_split", "ring", "dominant_last"])
+def test_split_decode_adversarial_masks(cuda_device, dtype, kind):
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.decode_attention import split_plan
+
+    B, C, H, G, hd = 1, 2048, 8, 2, 128
+    plan = split_plan(B, H, C, hd, dtype,
+                      _cuda.sm_count(cuda_device.index or 0))
+    assert plan.n_split > 1
+    valid = _adversarial_valid(cuda_device, kind, C, plan)
+    q, k, v, valid = _slot_case(cuda_device, dtype, B, C, H, G, hd, valid)
+    if kind == "dominant_last":
+        c = plan.tiles(plan.n_split - 1)[0] * plan.tile + 5
+        k[:, :, c] = (q[:, :, 0] * 4).to(dtype)     # head 0's score dominates
+    got = decode_attention(q, k, v, valid)
+    want = decode_attention_plain(q, k, v, valid)
+    _assert_decode_close(got, want)
+    if kind == "dominant_last":
+        torch.testing.assert_close(got[:, :, 0].float(),
+                                   v[:, :, c].float(), rtol=0, atol=0.05)
+
+
+def _paged_tables(P, bs, n_bt, pos_list, holes=(), seed=13):
+    """Slot b owns shuffled blocks covering 0..pos[b]; entries listed in
+    ``holes`` ((b, j) pairs) and a slot with pos < 0 are sentinels."""
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(seed))
+    tables = torch.full((len(pos_list), n_bt), P, dtype=torch.int32)
+    used = 0
+    for b, p in enumerate(pos_list):
+        if p < 0:
+            continue
+        n = min(p // bs + 1, n_bt)
+        tables[b, :n] = perm[used:used + n]
+        used += n
+    for b, j in holes:
+        tables[b, j] = P
+    return tables
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,G,bs", [(64, 4, 16), (112, 1, 16),
+                                     (128, 2, 16), (256, 2, 16),
+                                     (128, 2, 48), (36, 8, 128)])
+def test_split_paged_widths_match_plain(cuda_device, dtype, hd, G, bs):
+    """One layer of the engine's stacked pool (a view without the trash
+    block) at the serve widths and the widest head; block sizes that do
+    not divide a 64-position tile; sentinel holes inside a slot's row (a
+    tile straddles them, rows masked one by one); an all-sentinel slot,
+    which must read 0 and is kept out of the comparison."""
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    H, n_pos = 2, 2048
+    n_bt = n_pos // bs
+    P = 3 * n_bt
+    pos_list = [17, 700, n_pos - 1, -1]
+    tables = _paged_tables(P, bs, n_bt, pos_list,
+                           holes=[(1, 1), (2, 3), (2, n_bt // 2)])
+    tables = tables.to(cuda_device)
+    pos = torch.tensor([max(p, 0) for p in pos_list], dtype=torch.int32,
+                       device=cuda_device)
+    B = len(pos_list)
+    q = torch.randn(B, H, G, hd, generator=g, device=cuda_device).to(dtype)
+    pool = torch.randn(2, 2, P + 1, bs, H, hd, generator=g,
+                       device=cuda_device).to(dtype)
+    kp, vp = pool[0, 1, :P], pool[1, 1, :P]
+    reset_launches()
+    got = paged_decode_attention(q, kp, vp, tables, pos)
+    assert LAUNCHES["paged_decode_attention"] == 1
+    want = paged_decode_attention_plain(q, kp, vp, tables, pos)
+    _assert_decode_close(got, want, rows=slice(0, B - 1))
+    assert bool((got[-1] == 0).all())
+
+
+@pytest.mark.cuda
+def test_split_decode_is_deterministic(cuda_device):
+    """The merge runs in split order: two calls agree bit for bit."""
+    valid = _prefix_valid(cuda_device, 2048, [2000] * 8)
+    q, k, v, valid = _slot_case(cuda_device, torch.bfloat16, 8, 2048, 8, 2,
+                                128, valid)
+    assert torch.equal(decode_attention(q, k, v, valid),
+                       decode_attention(q, k, v, valid))
+
+
+@pytest.mark.cuda
+def test_split_decode_calls_make_no_host_sync(cuda_device):
+    """A wrapper call reads no tensor on the host (the split plan is made
+    from shapes), so a CUDA graph could capture it."""
+    valid = _prefix_valid(cuda_device, 2048, [300])
+    q, k, v, valid = _slot_case(cuda_device, torch.bfloat16, 1, 2048, 8, 2,
+                                128, valid)
+    tables = _paged_tables(256, 16, 128, [300]).to(cuda_device)
+    pos = torch.tensor([300], dtype=torch.int32, device=cuda_device)
+    pool = torch.randn(2, 257, 16, 8, 128, device=cuda_device) \
+        .to(torch.bfloat16)
+    kp, vp = pool[0, :256], pool[1, :256]
+    decode_attention(q, k, v, valid)                 # build and load first
+    paged_decode_attention(q, kp, vp, tables, pos)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        decode_attention(q, k, v, valid)
+        paged_decode_attention(q, kp, vp, tables, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
