@@ -13,21 +13,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
    8 slots at ragged positions, over the dense slot cache and over a
    shuffled block pool; the two scans at rwkv6-1.6b's and zamba2-7b's
    prefill shapes; flash and slot decode at zamba2's head_dim 112 and the
-   FFN at its d 3584 / d_ff 14336), with the maximum error beside its
+   FFN at its d 3584 / d_ff 14336; flash on a padded admission group of
+   8 x 113 and the FFN at T = 8, the continuous engine's 8 decode slots,
+   and at the largest T the drains' batched admission prefills, group
+   size x padded length, printed), with the maximum error beside its
    tolerance (for bf16 decode, per slot, in ulps of the slot's outputs;
    for the scans also the final state's), the kernel's median time (CUDA
    events around one call, L2 flushed before it, the host's enqueue
    hidden behind a spin kernel), the plain version's time, the time of
    the PyTorch library calls that compute the same function where there
    are such (for paged attention: the dense gather plus SDPA, two calls;
-   none for the FFN and the scans), and the bound (the larger of bytes at
-   3.35 TB/s and FLOPs at the card's peak for the dtype), after the
-   timer's floor (a one-element kernel timed the same way). The decode
-   rows also give the split plan (n_split, tile, merge route) and cover
-   batch 1 at 17-2000 valid slots, masks that stress the split merge
-   (every valid slot in one split's tiles, a ring window, a dominant
-   score in the last split), and a paged table with sentinel holes and a
-   retired slot, which must read 0;
+   none for the scans; for the FFN the bf16 chain silu(x Wg) * (x Wu) Wd,
+   five calls, a yardstick the summary keeps out of library_ms), and the
+   bound (the larger of bytes at 3.35 TB/s and FLOPs at the card's peak
+   for the dtype), after the timer's floor (a one-element kernel timed
+   the same way). The decode rows also give the split plan (n_split,
+   tile, merge route), the flash and FFN rows their plans (route, row
+   tiles, regime, splits, grid), and cover batch 1 at 17-2000 valid
+   slots, masks that stress the split merge (every valid slot in one
+   split's tiles, a ring window, a dominant score in the last split),
+   and a paged table with sentinel holes and a retired slot, which must
+   read 0;
 4. model: full-width qwen3-0.6b in f32 (random weights from seed 0), one
    prompt, prefill plus 8 greedy decode steps, kernels against the
    reference path (force_ref): logits within 1e-3, greedy tokens equal;
@@ -225,9 +231,15 @@ def kernel_cases(dev, flush):
     Returns (rows, {kernel: row of the JSON summary})."""
     import torch.nn.functional as F
 
+    from repro_torch.core import paper_problem
     from repro_torch.kernels import (_cuda, decode_attention,
                                      flash_attention, fused_ffn, rwkv6_scan,
                                      ssd_scan)
+    from repro_torch.queueing_sim import generate_stream
+
+    # the serve phases' stream: its prompt lengths set the prefill shapes
+    prompt_lens = [q.prompt_len for q in generate_stream(
+        paper_problem(lam=0.1, alpha=30.0).tasks, 0.1, 8, seed=0).queries]
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rows, summary = [], {}
@@ -242,11 +254,13 @@ def kernel_cases(dev, flush):
 
     def record(name, case, dtype, got, want, tol, reason, fn, plain, lib,
                nbytes, flops, main, library="one call", state=None,
-               fields=None):
+               fields=None, one_call=True):
         """``tol``: one float (atol = rtol), a per-slot tensor of atols, or
         an (atol, rtol) pair. ``state``: the scans' (got, want) final
         states, held at STATE_TOL. ``fields``: added to the row (the
-        decode kernels' split plan)."""
+        kernels' plans). ``one_call``: ``lib`` is one PyTorch call, the
+        summary's ``library_ms``; otherwise a yardstick timed beside the
+        kernel (``library_one_call`` false) that the summary leaves out."""
         per_slot, extra = {}, {}
         if isinstance(tol, torch.Tensor):            # one tolerance per slot
             err, ok = compare(got, want,
@@ -273,9 +287,11 @@ def kernel_cases(dev, flush):
                "plain_ms": median_ms(plain, flush),
                "library_ms": None if lib is None else median_ms(lib, flush),
                "library": None if lib is None else library,
+               "library_one_call": lib is not None and one_call,
                "bound_ms": bms, "bound_by": by, **(fields or {})}
         if lib is not None:
-            row["beats_library"] = row["ms"] < row["library_ms"]
+            row["beats_library" if one_call else "beats_chain"] = (
+                row["ms"] < row["library_ms"])
         print(json.dumps(row))
         rows.append(row)
         check(ok, f"{name} {case} {row['dtype']}: max err {err} > tol {tol}"
@@ -284,11 +300,19 @@ def kernel_cases(dev, flush):
             summary[name] = row
 
     # -- 1. prefill flash attention: q [B,S,nh,hd], k/v [B,S,nkv,hd] views
-    def flash_case(dtype, S, H, G, HD, main):
-        qm = randn(1, S, H * G, HD, dtype=dtype)
-        km = randn(1, S, H, HD, dtype=dtype)
-        vm = randn(1, S, H, HD, dtype=dtype)
-        q = qm.reshape(1, S, H, G, HD).permute(0, 2, 3, 1, 4)
+    def flash_fields(B, S, H, G, HD, dtype):
+        plan = flash_attention.flash_plan(B, H, G, S, HD, dtype,
+                                          _cuda.sm_count(0))
+        return {"route": plan.route, "row_tiles": plan.row_tiles,
+                "rows_per_cta": plan.rows_per_cta, "warps": plan.warps,
+                "ctas": plan.ctas, "hd_pad": plan.hd_pad,
+                "block_k": plan.block_k}
+
+    def flash_case(dtype, S, H, G, HD, main, B=1):
+        qm = randn(B, S, H * G, HD, dtype=dtype)
+        km = randn(B, S, H, HD, dtype=dtype)
+        vm = randn(B, S, H, HD, dtype=dtype)
+        q = qm.reshape(B, S, H, G, HD).permute(0, 2, 3, 1, 4)
         k, v = km.permute(0, 2, 1, 3), vm.permute(0, 2, 1, 3)
         fa = flash_attention.flash_attention
         got = fa(q, k, v)
@@ -298,21 +322,26 @@ def kernel_cases(dev, flush):
         vl = v.repeat_interleave(G, dim=1)
         mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
         el = qm.element_size()
-        nbytes = (2 * H * G + 2 * H) * S * HD * el
-        flops = H * G * S * (S + 1) / 2 * 4 * HD
-        record("flash_attention", f"B=1 S={S} H={H} G={G} hd={HD}", dtype,
+        nbytes = B * (2 * H * G + 2 * H) * S * HD * el
+        flops = B * H * G * S * (S + 1) / 2 * 4 * HD
+        record("flash_attention", f"B={B} S={S} H={H} G={G} hd={HD}", dtype,
                got, want, TOL[dtype], TOL_REASON[dtype],
                lambda: fa(q, k, v),
                lambda: flash_attention.flash_attention_plain(q, k, v),
                lambda: F.scaled_dot_product_attention(ql, kl, vl,
                                                       attn_mask=mask),
-               nbytes, flops, main=main)
+               nbytes, flops, main=main,
+               fields=flash_fields(B, S, H, G, HD, dtype))
 
     for dtype, S in ((torch.bfloat16, 16), (torch.bfloat16, 37),
                      (torch.bfloat16, 128), (torch.float32, 37),
                      (torch.float32, 128)):
         flash_case(dtype, S, H, G, HD,
                    main=(dtype == torch.bfloat16 and S == 128))
+    # a padded admission group of the rolling drain (8 prompts, padded to
+    # the longest, 113)
+    flash_case(torch.bfloat16, max(prompt_lens), H, G, HD, main=False,
+               B=len(prompt_lens))
     for dtype, S in ((torch.bfloat16, 113), (torch.float32, 37)):
         flash_case(dtype, S, Z_H, 1, Z_HD, main=False)     # zamba2's block
 
@@ -482,7 +511,20 @@ def kernel_cases(dev, flush):
         paged_case(dtype, POS[:6] + (2000, 1500), main=False,
                    holes=((3, 2), (6, 5), (6, 64)), retired=7)
 
-    # -- 4. fused SwiGLU FFN, E = 1: T = 1 at decode, T = S at prefill
+    # -- 4. fused SwiGLU FFN, E = 1: T = 1 at batch-1 decode, 8 at the
+    # continuous engine's 8 slots, S at prefill, and the largest padded
+    # admission group of the drains (group size x longest prompt)
+    def ffn_fields(T, D, DFF, dtype):
+        plan = fused_ffn.ffn_plan(1, T, D, DFF, dtype, _cuda.sm_count(0))
+        out = {"route": plan.route, "regime": plan.regime}
+        if plan.route == "tensor_core":
+            out.update(bm=plan.bm, ks_up=plan.ks_up, ks_down=plan.ks_down,
+                       ctas_up=plan.grid_up, ctas_down=plan.grid_down,
+                       scratch_bytes=plan.scratch_bytes)
+        else:
+            out.update(bt=plan.bt, n_split=plan.n_split)
+        return out
+
     def ffn_case(dtype, T, D, DFF, main):
         x = randn(1, T, D, dtype=dtype)
         wg = randn(1, D, DFF, dtype=dtype, scale=D ** -0.5)
@@ -497,17 +539,29 @@ def kernel_cases(dev, flush):
         el = x.element_size()
         nbytes = (2 * T * D + 3 * D * DFF) * el
         flops = 6 * T * D * DFF
+
+        def chain(x=x[0], wg=wg[0], wu=wu[0], wd=wd[0]):
+            return (F.silu(x @ wg) * (x @ wu)) @ wd
         record("fused_ffn", f"E=1 T={T} d={D} d_ff={DFF}", dtype, got, want,
                tol, reason, lambda: ff(x, wg, wu, wd),
-               lambda: fused_ffn.fused_ffn_plain(x, wg, wu, wd), None,
-               nbytes, flops, main=main)
+               lambda: fused_ffn.fused_ffn_plain(x, wg, wu, wd), chain,
+               nbytes, flops, main=main, one_call=False,
+               library="chain of 5 calls: x @ Wg, x @ Wu (torch.matmul), "
+                       "silu, the product, @ Wd",
+               fields=ffn_fields(T, D, DFF, dtype))
 
-    for dtype, T in ((torch.bfloat16, 1), (torch.bfloat16, 37),
-                     (torch.bfloat16, 128), (torch.float32, 1),
+    drain_T = len(prompt_lens) * max(prompt_lens)
+    print(json.dumps({"phase": "drain_admission_T", "prompts": prompt_lens,
+                      "largest_group_T": drain_T,
+                      "why": "the slot drain admits all 8 requests in one "
+                             "prefill, right-padded to the longest"}))
+    for dtype, T in ((torch.bfloat16, 1), (torch.bfloat16, 8),
+                     (torch.bfloat16, 37), (torch.bfloat16, 128),
+                     (torch.bfloat16, drain_T), (torch.float32, 1),
                      (torch.float32, 128)):
         ffn_case(dtype, T, D, DFF, main=(dtype == torch.bfloat16 and T == 1))
-    for dtype, T in ((torch.bfloat16, 1), (torch.bfloat16, 37),
-                     (torch.float32, 1)):
+    for dtype, T in ((torch.bfloat16, 1), (torch.bfloat16, 8),
+                     (torch.bfloat16, 37), (torch.float32, 1)):
         ffn_case(dtype, T, Z_D, Z_DFF, main=False)       # zamba2's block
 
     # -- 5. the scans at the recurrent prefills' shapes (B = 1), in the
@@ -1135,7 +1189,11 @@ def main() -> int:
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"],
+                        "library_ms": (row["library_ms"]
+                                       if row["library_one_call"] else None),
+                        **({} if row["library_one_call"] or
+                           row["library_ms"] is None else
+                           {"chain_ms": row["library_ms"]}),
                         "launches_by_path": {
                             path: counts[name]
                             for path, counts in by_path.items()

@@ -57,6 +57,16 @@ def strides(*tensors_dims) -> ctypes.Array:
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def rows_aligned(*tensors_dims) -> bool:
+    """Whether every tensor starts on 16 bytes and each listed stride is a
+    whole number of 16 bytes, so its rows take 16-byte vector copies."""
+    for t, dims in tensors_dims:
+        if t.data_ptr() % 16 or any(t.stride(d) * t.element_size() % 16
+                                    for d in dims):
+            return False
+    return True
+
+
 def raise_on(name: str, err: int) -> None:
     """Raise on a non-zero cudaGetLastError() code from a C entry."""
     if err != 0:
