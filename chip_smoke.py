@@ -18,7 +18,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    and at the largest T the drains' batched admission prefills, group
    size x padded length, printed), with the maximum error beside its
    tolerance (for bf16 decode, per slot, in ulps of the slot's outputs;
-   for the scans also the final state's), the kernel's median time (CUDA
+   for the scans also the final state's, and their plans: channel slices
+   a head, CTAs, chunks), the kernel's median time (CUDA
    events around one call, L2 flushed before it, the host's enqueue
    hidden behind a spin kernel), the plain version's time, the time of
    the PyTorch library calls that compute the same function where there
@@ -566,6 +567,7 @@ def kernel_cases(dev, flush):
 
     # -- 5. the scans at the recurrent prefills' shapes (B = 1), in the
     # models' layouts: [B, S, H, ...] viewed as [B, H, S, ...]
+    sms = _cuda.sm_count(0)
     for dtype in (torch.bfloat16, torch.float32):
         for S in SCAN_S:
             main = dtype == torch.bfloat16 and S == 113
@@ -589,7 +591,9 @@ def kernel_cases(dev, flush):
                    SCAN_REASON[dtype],
                    lambda: rwkv6_scan.rwkv6_scan(r, k, v, la, u),
                    lambda: rwkv6_scan.rwkv6_scan_plain(r, k, v, la, u), None,
-                   nbytes, flops, main=main, state=(gs, ws))
+                   nbytes, flops, main=main, state=(gs, ws),
+                   fields=rwkv6_scan.rwkv6_plan(1, RWKV_H, S, RWKV_HD, dtype,
+                                                sms).fields())
             # ssd: dt = softplus(N - 2), A = -1; B/C one row for all heads
             x = randn(1, S, SSD_H, SSD_HD, dtype=dtype).transpose(1, 2)
             dt = F.softplus(randn(1, S, SSD_H, dtype=torch.float32) - 2.0) \
@@ -612,7 +616,9 @@ def kernel_cases(dev, flush):
                    scan_tol("ssd_scan", dtype, want), SCAN_REASON[dtype],
                    lambda: ssd_scan.ssd_scan(x, dt, a, Bm, Cm),
                    lambda: ssd_scan.ssd_scan_plain(x, dt, a, Bm, Cm), None,
-                   nbytes, flops, main=main, state=(gs, ws))
+                   nbytes, flops, main=main, state=(gs, ws),
+                   fields=ssd_scan.ssd_plan(1, SSD_H, S, SSD_HD, SSD_DS,
+                                            dtype, sms).fields())
     return rows, summary
 
 

@@ -30,6 +30,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                    smem_addr(dst)),
                "l"(src), "r"(ok ? 16 : 0));
 }
+// 4-byte async copy (one f32), zero-filled when ok = false
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -66,6 +73,20 @@ __device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4],
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// x = hi + lo to about 2^-17 relative: hi = bf16(x), lo = bf16(x - hi).
+// An f32 operand split so costs two mma.sync where one rounding to bf16
+// would cost 2^-9 relative per term.
+struct Bf16Pair {
+  unsigned hi, lo;
+};
+__device__ __forceinline__ Bf16Pair split_bf16(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(
+      a - __bfloat162float(h.x), b - __bfloat162float(h.y));
+  return {*reinterpret_cast<const unsigned*>(&h),
+          *reinterpret_cast<const unsigned*>(&l)};
 }
 
 }  // namespace rt

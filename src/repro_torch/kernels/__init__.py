@@ -6,7 +6,8 @@ holds wrappers that launch the
 CUDA kernels built from ``repro_torch/csrc`` for a CUDA tensor, and each
 kernel's plain PyTorch version, which the wrapper takes only for a CPU
 tensor. ``ops`` adapts the
-model's layouts to the kernels'; ``ref`` holds the JAX package's oracles.
+model's layouts to the kernels'; ``ref`` holds the JAX package's oracles;
+``scan_plan`` the two scans' shape-only launch plan.
 
 ``LAUNCHES`` counts kernel launches per kernel name: each wrapper adds one
 where it launches its kernel, and nowhere else, so a run can show that its

@@ -27,6 +27,11 @@ and ``e`` its exclusive cumulative log decay. Every such exponent is
 decay on a channel passes about -88. Where that form is finite the two
 compute the same function. Any S is taken; the chunk length does not
 change the result.
+
+On the card, :func:`rwkv6_plan` splits each head's value channels over
+CTAs from shapes alone (``scan_plan``); bf16 runs on tensor cores with
+the off-diagonal pairs factored at sub-block boundaries (every factor
+``<= 1``, see ``csrc/rwkv6_scan.cu``), f32 on scalar FMAs.
 """
 from __future__ import annotations
 
@@ -34,9 +39,41 @@ import torch
 
 from . import LAUNCHES, _cuda
 from ..compat import acc
+from .scan_plan import CHUNK, ScanPlan, make_plan, slice_width
 
-CHUNK = 32       # tokens per chunk (csrc/rwkv6_scan.cu kQ)
 MAX_HD = 64      # head dims the kernel takes (csrc/rwkv6_scan.cu kMaxHD)
+#: hd padded inside a tensor-core CTA (csrc/rwkv6_scan.cu kHDP)
+HD_PAD = 64
+#: rows of the diagonal blocks whose pairs keep a per-pair exp (8 or 16;
+#: the rest of the chunk's pairs are factored at block boundaries)
+DIAG_ROWS = 8
+
+
+def tc_smem_bytes(width: int) -> int:
+    """csrc/rwkv6_scan.cu tc_smem_bytes<P>: the r, k, v, la ring, the
+    state's bf16 copy, the chunk's decay-factored operand tiles (464 rows),
+    u and the per-pair dots."""
+    return (2 * (4 * CHUNK * (HD_PAD + 8) + 3 * CHUNK * (width + 8)
+                 + 464 * (HD_PAD + 8))
+            + 4 * (2 * CHUNK * (HD_PAD + 4) + HD_PAD + 4 * 256))
+
+
+def scalar_smem_bytes(hd: int, width: int) -> int:
+    """csrc/rwkv6_scan.cu scalar_smem_bytes (f32 throughout)."""
+    return 4 * (4 * CHUNK * (hd + 1) + CHUNK * (width + 1)
+                + CHUNK * (CHUNK + 1) + hd * (width + 1) + hd)
+
+
+def rwkv6_plan(B: int, H: int, S: int, hd: int, dtype,
+               sm_count: int) -> ScanPlan:
+    """The launch plan, from shapes alone: bf16 on tensor cores, f32 on
+    scalar FMAs, each head's value channels in slices (``scan_plan``)."""
+    width = slice_width(B * H, hd, sm_count)
+    if dtype == torch.bfloat16:
+        return make_plan("tensor_core", B * H, S, hd, width,
+                         tc_smem_bytes(width), DIAG_ROWS)
+    return make_plan("scalar", B * H, S, hd, width,
+                     scalar_smem_bytes(hd, width))
 
 
 def rwkv6_scan_plain(r, k, v, la, u, chunk: int = CHUNK):
@@ -103,14 +140,19 @@ def _launch(r, k, v, la, u):
     y = torch.empty((B, S, H, hd), dtype=r.dtype,
                     device=dev).permute(0, 2, 1, 3)
     sf = torch.empty((B, H, hd, hd), dtype=torch.float32, device=dev)
+    plan = rwkv6_plan(B, H, S, hd, r.dtype, _cuda.sm_count(dev.index or 0))
+    dims = (0, 1, 2)
+    vec = hd % 8 == 0 and _cuda.rows_aligned((r, dims), (k, dims), (v, dims),
+                                             (la, dims))
     fn = _cuda.entry(name, "rwkv6_scan_fwd",
                      [_cuda.I] + [_cuda.P] * 7 + [_cuda.LL_PTR]
-                     + [_cuda.I] * 4 + [_cuda.P])
-    st = _cuda.strides((r, (0, 1, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)),
-                       (la, (0, 1, 2)), (u, (0, 1)), (y, (0, 1, 2)))
+                     + [_cuda.I] * 7 + [_cuda.P])
+    st = _cuda.strides((r, dims), (k, dims), (v, dims), (la, dims),
+                       (u, (0, 1)), (y, dims))
     err = fn(_cuda.DTYPE_CODES[r.dtype], r.data_ptr(), k.data_ptr(),
              v.data_ptr(), la.data_ptr(), u.data_ptr(), y.data_ptr(),
-             sf.data_ptr(), st, B, H, S, hd, _cuda.stream_ptr(dev))
+             sf.data_ptr(), st, B, H, S, hd, plan.slice_width,
+             plan.diag_rows, int(vec), _cuda.stream_ptr(dev))
     _cuda.raise_on(name, err)
     LAUNCHES[name] += 1
     return y, sf

@@ -25,16 +25,47 @@ is the score matrix ``(C_i . B_j) exp(cum_i - cum_j) dt_j`` for ``j <= i``
 (the exponent is formed only there, where it is ``<= 0``), the state is
 carried across chunks, and scores stay in f32 as in the TPU kernel. Any S
 is taken; the chunk length does not change the result.
+
+On the card, :func:`ssd_plan` splits each head's ``hd`` channels over
+CTAs from shapes alone (``scan_plan``); bf16 runs on tensor cores, f32 on
+scalar FMAs.
 """
 from __future__ import annotations
 
 import torch
 
 from . import LAUNCHES, _cuda
+from .scan_plan import CHUNK, ScanPlan, make_plan, slice_width
 
-CHUNK = 64       # tokens per chunk (csrc/ssd_scan.cu kQ)
 MAX_HD = 64      # head dims and state sizes the kernel takes
 MAX_DS = 64
+#: ds padded inside a tensor-core CTA (csrc/ssd_scan.cu kDSP)
+DS_PAD = 64
+
+
+def tc_smem_bytes(width: int) -> int:
+    """csrc/ssd_scan.cu tc_smem_bytes<P>: the x, B, C ring, w o B (hi and
+    lo), the state's bf16 copy and the chunk's decays."""
+    return 2 * (2 * CHUNK * (width + 8) + 6 * CHUNK * (DS_PAD + 8)
+                + width * (DS_PAD + 8)) + 4 * 7 * CHUNK
+
+
+def scalar_smem_bytes(width: int, ds: int) -> int:
+    """csrc/ssd_scan.cu scalar_smem_bytes (f32 throughout)."""
+    return 4 * (CHUNK * (width + 1) + 2 * CHUNK * (ds + 1) + CHUNK
+                * (CHUNK + 1) + width * (ds + 1) + 5 * CHUNK)
+
+
+def ssd_plan(B: int, H: int, S: int, hd: int, ds: int, dtype,
+             sm_count: int) -> ScanPlan:
+    """The launch plan, from shapes alone: bf16 on tensor cores, f32 on
+    scalar FMAs, each head's x channels in slices (``scan_plan``)."""
+    width = slice_width(B * H, hd, sm_count)
+    if dtype == torch.bfloat16:
+        return make_plan("tensor_core", B * H, S, hd, width,
+                         tc_smem_bytes(width))
+    return make_plan("scalar", B * H, S, hd, width,
+                     scalar_smem_bytes(width, ds))
 
 
 def ssd_scan_plain(x, dt, a, Bm, Cm, chunk: int = CHUNK):
@@ -99,14 +130,19 @@ def _launch(x, dt, a, Bm, Cm):
     y = torch.empty((B, S, H, hd), dtype=x.dtype,
                     device=dev).permute(0, 2, 1, 3)
     sf = torch.empty((B, H, hd, ds), dtype=torch.float32, device=dev)
+    plan = ssd_plan(B, H, S, hd, ds, x.dtype, _cuda.sm_count(dev.index or 0))
+    vec = (hd % 8 == 0 and ds % 8 == 0
+           and _cuda.rows_aligned((x, (0, 1, 2)), (Bm, (0, 1, 2)),
+                                  (Cm, (0, 1, 2))))
     fn = _cuda.entry(name, "ssd_scan_fwd",
                      [_cuda.I] + [_cuda.P] * 7 + [_cuda.LL_PTR]
-                     + [_cuda.I] * 5 + [_cuda.P])
+                     + [_cuda.I] * 7 + [_cuda.P])
     st = _cuda.strides((x, (0, 1, 2)), (dt, (0, 1, 2)), (a, (0, 1, 2)),
                        (Bm, (0, 1, 2)), (Cm, (0, 1, 2)), (y, (0, 1, 2)))
     err = fn(_cuda.DTYPE_CODES[x.dtype], x.data_ptr(), dt.data_ptr(),
              a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(),
-             sf.data_ptr(), st, B, H, S, hd, ds, _cuda.stream_ptr(dev))
+             sf.data_ptr(), st, B, H, S, hd, ds, plan.slice_width, int(vec),
+             _cuda.stream_ptr(dev))
     _cuda.raise_on(name, err)
     LAUNCHES[name] += 1
     return y, sf

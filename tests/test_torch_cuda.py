@@ -21,7 +21,11 @@ prefill flash and FFN cases cover both routes of each (tensor cores in
 bf16, scalar FMAs in f32 and at widths off the 16-byte grid), head widths
 64-256, 1-8 query heads per kv head, S from 1 to 1024, T from 1 to 904,
 a d_ff that is no multiple of any tile, E = 2, bit-equal repeated calls,
-no host sync, and one CUDA-graph capture replayed.
+no host sync, and one CUDA-graph capture replayed. The scan cases cover
+both routes at decays down to -3000 a token (RWKV6) and -50 (SSD), widths
+16-64 (and 20, off the 16-byte grid), S from 1 to 200, B = 2 with the
+model's strides, each slice width forced, and the same determinism, sync
+and graph checks.
 """
 import dataclasses
 
@@ -243,6 +247,104 @@ def test_ssd_scan_matches_plain(cuda_device, dtype, S):
     wy, wsf = ssd_scan_plain(x, dt, a, Bm, Cm)
     torch.testing.assert_close(y.float(), wy.float(), **_scan_tol(wy, dtype))
     torch.testing.assert_close(sf, wsf, rtol=1e-3, atol=1e-3)
+
+
+# ---- the scans on tensor cores: extreme decays, widths, slices, B = 2
+def _rwkv_case(dev, dtype, B, S, H, hd, seed=31, extreme=False):
+    """r, k, v, la as [B, H, S, hd] views of the model's [B, S, H, hd]
+    projections and u [H, hd] on a batch stride of 0. ``extreme``: decays
+    from about -5e-5 down to -3000 per token (the model clips its decay
+    at -2981), every seventh channel at 0 and a -3000 token now and then."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = ((0.5 * torch.randn(B, S, H, hd, generator=g, device=dev))
+               .to(dtype).permute(0, 2, 1, 3) for _ in range(3))
+    z = torch.randn(B, S, H, hd, generator=g, device=dev)
+    la = -torch.exp(3.0 * z - 1.0).clamp(max=3000.0) if extreme \
+        else -torch.exp(1.5 * z - 2.0)
+    if extreme:
+        la[..., ::7] = 0.0
+        la[:, 5::11, :, 1::5] = -3000.0
+    u = (0.3 * torch.randn(H, hd, generator=g, device=dev))[None] \
+        .expand(B, H, hd)
+    return r, k, v, la.permute(0, 2, 1, 3), u
+
+
+def _ssd_case(dev, dtype, B, S, H, hd, ds, seed=32, extreme=False):
+    """x [B, H, S, hd] and dt, a [B, H, S] views of the model's layouts, B/C
+    one [B, S, ds] row shared by the heads (head stride 0). ``extreme``:
+    dt * A from 0 down to -50 per token, every fifth head at 0."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(B, S, H, hd, generator=g, device=dev).to(dtype) \
+        .permute(0, 2, 1, 3)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=g, device=dev) - 2.0)
+    a = -dt
+    if extreme:
+        a = -(dt * torch.exp(3.0 * torch.randn(B, S, H, generator=g,
+                                               device=dev))).clamp(max=50.0)
+        a[..., ::5] = 0.0
+    bc = torch.randn(B, S, 2 * ds, generator=g, device=dev).to(dtype)
+    Bm = bc[..., :ds][:, None].expand(B, H, S, ds)
+    Cm = bc[..., ds:][:, None].expand(B, H, S, ds)
+    return x, dt.permute(0, 2, 1), a.permute(0, 2, 1), Bm, Cm
+
+
+def _check_scan(got, want, dtype, rwkv):
+    y, sf = got
+    wy, wsf = want
+    assert bool(torch.isfinite(y.float()).all())
+    tol = (dict(rtol=1e-4, atol=1e-4) if rwkv and dtype == torch.float32
+           else _scan_tol(wy, dtype))
+    torch.testing.assert_close(y.float(), wy.float(), **tol)
+    torch.testing.assert_close(sf, wsf, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 17, 64, 65, 200])
+def test_scans_extreme_decays_match_plain(cuda_device, dtype, S):
+    """The serve shapes' heads at decays the TPU kernel's factored form
+    overflows on: RWKV6 down to -3000 a token, SSD dt * A down to -50,
+    some channels (heads) without decay; y finite and within the scan
+    tolerances, the state within 1e-3."""
+    reset_launches()
+    args = _rwkv_case(cuda_device, dtype, 1, S, 32, 64, extreme=True)
+    _check_scan(rwkv6_scan(*args), rwkv6_scan_plain(*args), dtype, True)
+    args = _ssd_case(cuda_device, dtype, 1, S, 112, 64, 64, extreme=True)
+    _check_scan(ssd_scan(*args), ssd_scan_plain(*args), dtype, False)
+    assert LAUNCHES["rwkv6_scan"] == 1 and LAUNCHES["ssd_scan"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 20])
+@pytest.mark.parametrize("S", [1, 17, 65, 200])
+def test_scans_widths_match_plain(cuda_device, dtype, hd, S):
+    """Every width 16 / 32 / 64 (and 20, off the 16-byte grid: element
+    copies) at B = 2 with the model's strides, SSD at ds = hd; few heads,
+    so the plan takes its narrowest slices."""
+    args = _rwkv_case(cuda_device, dtype, 2, S, 3, hd)
+    _check_scan(rwkv6_scan(*args), rwkv6_scan_plain(*args), dtype, True)
+    args = _ssd_case(cuda_device, dtype, 2, S, 3, hd, hd)
+    _check_scan(ssd_scan(*args), ssd_scan_plain(*args), dtype, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [16, 32, 64])
+def test_scans_every_slice_width_matches_plain(cuda_device, monkeypatch,
+                                               dtype, width):
+    """Each of the kernels' slice widths, forced on the serve shapes at
+    S = 113, and SSD at ds = 16 against hd = 64."""
+    from repro_torch.kernels import rwkv6_scan as rk
+    from repro_torch.kernels import ssd_scan as sk
+    for mod in (rk, sk):
+        monkeypatch.setattr(mod, "slice_width", lambda *a: width)
+    args = _rwkv_case(cuda_device, dtype, 1, 113, 32, 64)
+    _check_scan(rwkv6_scan(*args), rwkv6_scan_plain(*args), dtype, True)
+    for ds in (64, 16):
+        args = _ssd_case(cuda_device, dtype, 1, 113, 112, 64, ds)
+        _check_scan(ssd_scan(*args), ssd_scan_plain(*args), dtype, False)
 
 
 @pytest.mark.cuda
@@ -612,23 +714,38 @@ def test_ffn_shapes_match_plain(cuda_device, dtype, T, E, d, f):
 
 
 def _prefill_calls(dev):
-    """One flash and one FFN call per regime at serve shapes (bf16)."""
+    """One flash and one FFN call per regime and each scan at serve shapes
+    (bf16, and the scans' f32 route)."""
     fl = [_flash_inputs(dev, torch.bfloat16, 1, 128, 8, 2, 128),
           _flash_inputs(dev, torch.bfloat16, 8, 113, 8, 2, 128),
           _flash_inputs(dev, torch.bfloat16, 1, 113, 32, 1, 112)]
     ff = [_ffn_inputs(dev, torch.bfloat16, 1, T, 1024, 3072)
           for T in (1, 8, 128)]
+    rw = [_rwkv_case(dev, dt, 1, 113, 32, 64)
+          for dt in (torch.bfloat16, torch.float32)]
+    sd = [_ssd_case(dev, dt, 1, 113, 112, 64, 64)
+          for dt in (torch.bfloat16, torch.float32)]
     return ([lambda a=a: flash_attention(*a) for a in fl]
-            + [lambda a=a: fused_ffn(*a) for a in ff])
+            + [lambda a=a: fused_ffn(*a) for a in ff]
+            + [lambda a=a: rwkv6_scan(*a) for a in rw]
+            + [lambda a=a: ssd_scan(*a) for a in sd])
+
+
+def _equal(got, want) -> bool:
+    """Bit-equal outputs: one tensor, or a scan's (y, state)."""
+    if isinstance(got, tuple):
+        return all(torch.equal(a, b) for a, b in zip(got, want))
+    return torch.equal(got, want)
 
 
 @pytest.mark.cuda
 def test_prefill_kernels_are_deterministic(cuda_device):
-    """Split reductions sum in split order: repeated calls are bit-equal."""
+    """Split reductions sum in split order and the scans' slices in a fixed
+    order: repeated calls are bit-equal."""
     for call in _prefill_calls(cuda_device):
         first = call()
         for _ in range(3):
-            assert torch.equal(call(), first)
+            assert _equal(call(), first)
 
 
 @pytest.mark.cuda
@@ -667,4 +784,4 @@ def test_prefill_kernels_replay_in_a_cuda_graph(cuda_device):
         graph.replay()
         torch.cuda.synchronize()
         for got, want in zip(outs, eager):
-            assert torch.equal(got, want)
+            assert _equal(got, want)
