@@ -13,7 +13,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    8 slots at ragged positions, over the dense slot cache and over a
    shuffled block pool; the two scans at rwkv6-1.6b's and zamba2-7b's
    prefill shapes; flash and slot decode at zamba2's head_dim 112 and the
-   FFN at its d 3584 / d_ff 14336; flash on a padded admission group of
+   FFN at its d 3584 / d_ff 14336, and each at qwen3-8b's G 4 and
+   d 4096 / d_ff 12288; flash on a padded admission group of
    8 x 113 and the FFN at T = 8, the continuous engine's 8 decode slots,
    and at the largest T the drains' batched admission prefills, group
    size x padded length, printed), with the maximum error beside its
@@ -43,29 +44,41 @@ Phases, in order; any failure ends the run with a non-zero exit:
    pool), then 8 paged decode steps with the kernels against force_ref;
 6. serve: full-width qwen3-0.6b in bf16 through LLMServer (virtual clock,
    real tokens) with DecodeEngine(cache_capacity=2048, chunk=16) on
-   paper_problem(lam=0.1, alpha=30) and an 8-query stream (seed 0):
-   exact budget enforcement, the report, prefill/decode wall seconds and
-   each kernel's launch count on this run (a kernel launched 0 times
-   fails); then one profiled stretch of decode steps: host wall time per
-   step against the device time of its kernels;
+   paper_problem(lam=0.1, alpha=30) and an 8-query stream (seed 0): the
+   decode chunks replay the engine's captured CUDA graph of the decode
+   step. Exact budget enforcement, the report, prefill/decode wall
+   seconds, tokens/s, peak device memory, the graph's captures (1),
+   replays, host reads per chunk (1), and each kernel's launch count on
+   this run through the replay accounting (a kernel launched 0 times
+   fails; slot decode must count one launch per layer per replayed step);
+   then the eager-vs-graph pin (the first two requests, budgets capped at
+   PIN_BUDGET, through the eager per-token loop and the graph: greedy
+   tokens equal, tokens/s of each) and a profiled stretch of decode steps,
+   eager and replayed: host wall time per step against the device time of
+   its kernels;
 7. continuous serve: the same stream through LLMServer(batch_size=8) with
    ContinuousBatchingEngine(paged=True, max_slots=8, capacity=2048,
-   block_size=16, chunk=16): exact budgets, the report with its KV
-   occupancy, launch counts (paged decode attention must run). This and
-   the next phase run qwen3-0.6b at full width but 8 of its 28 layers
+   block_size=16, chunk=16), whose chunks replay its captured step: exact
+   budgets, the report with its KV occupancy, the graph's counts, launch
+   counts (paged decode once per layer per replayed step). This and the
+   next two phases run qwen3-0.6b at full width but 8 of its 28 layers
    (QWEN3_BATCHED_LAYERS), to keep the script well inside its time limit;
 8. rolling drain: all 8 requests offered to the paged engine at once
    against a 64-block pool (1024 tokens, below the 1590 they need), so
    admission is back-pressured; block invariants and the free list
    checked after the drain; the same drain in slot mode (one admission),
    and again in slot mode offered the paged drain's admission groups at
-   its chunks. Each drain must launch its decode kernel (paged or slot)
-   and not the other. How many requests' bf16 tokens agree between the
+   its chunks. Each drain captures its step once and must launch its
+   decode kernel (paged or slot), once per layer per replayed step, and
+   not the other. How many requests' bf16 tokens agree between the
    paged drain and each slot drain is reported, not asserted: a greedy
    argmax on random weights can flip on a summation order (other groups
    prefill at other padded shapes); phase 5 is the check. Then one
-   profiled chunk of decode at 8 live slots in paged and slot mode;
-9. rwkv6 model and serve: full-width rwkv6-1.6b, phase 4 in f32
+   profiled chunk of decode at 8 live slots in paged and slot mode,
+   replayed and eager;
+9. step latency points: a paged engine of b slots, all live, for b = 1,
+   2, 4, 8: the replayed step's host time (for fit_step_latency);
+10. rwkv6 model and serve: full-width rwkv6-1.6b, phase 4 in f32
    (prefill through the wkv scan kernel) plus every scan of the
    reference prefill held in situ against the kernel and the plain
    versions' floor; its end-to-end logits are held to 1.5 times that
@@ -73,11 +86,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
    evaluation's prefill logits, and the chunked scan's in f64, against
    the sequential reference in f64. Then phase 6 in bf16 (the scan
    kernel must run);
-10. zamba2 model and serve: full-width zamba2-7b (81 Mamba2 layers, the
+11. zamba2 model and serve: full-width zamba2-7b (81 Mamba2 layers, the
    shared attention block applied 13 times), phase 4 in f32 with the
    same in-situ check, then phase 6 in bf16 (the SSD scan, flash, slot
-   decode and FFN kernels must run). Each model is freed before the next
-   phase.
+   decode and FFN kernels must run; slot decode once per shared-block
+   application per replayed step). Each model is freed before the next
+   phase;
+12. qwen3-8b, the paper's model: phases 4 and 5 in f32 at full width and
+   4 of its 36 layers (QWEN3_8B_F32_LAYERS: the f32 weights and the
+   reference path's copies), then phase 6 in bf16 at full width and full
+   depth, the server on the wall clock (ServerConfig(mode="wall"));
+13. calibration: fit_latency to the qwen3-8b serve's per-request (tokens,
+   seconds), fit_step_latency to phase 9's points; paper_problem solved
+   again with the fitted t0 and c, its budgets printed beside the
+   paper's, and the occupancy model at the fitted constants. These print
+   numbers and gate nothing on speed.
 
 The line before the last is the kernels' JSON summary (with each kernel's
 launches on every serve path that ran it); the last line is
@@ -87,6 +110,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import pathlib
 import statistics
@@ -155,6 +179,11 @@ SSD_H, SSD_HD, SSD_DS = 112, 64, 64
 Z_H, Z_HD, Z_D, Z_DFF = 32, 112, 3584, 14336
 SCAN_S = (18, 113, 128)   # the stream's shortest and longest prompt, 128
 QWEN3_BATCHED_LAYERS = 8  # depth of the continuous serve and the drains
+# qwen3-8b's: 8 kv heads of 128 with 4 query heads each, d 4096 / d_ff 12288
+Q8_H, Q8_G, Q8_D, Q8_DFF = 8, 4, 4096, 12288
+QWEN3_8B_F32_LAYERS = 4   # depth of qwen3-8b's f32 check (f32 weights + ref)
+PIN_BUDGET = 64           # budget cap of the eager-vs-graph pin's requests
+OCCUPANCIES = (1, 2, 4, 8)  # continuous engines timed for fit_step_latency
 
 
 
@@ -345,6 +374,7 @@ def kernel_cases(dev, flush):
                B=len(prompt_lens))
     for dtype, S in ((torch.bfloat16, 113), (torch.float32, 37)):
         flash_case(dtype, S, Z_H, 1, Z_HD, main=False)     # zamba2's block
+        flash_case(dtype, S, Q8_H, Q8_G, HD, main=False)   # qwen3-8b's
 
     # -- 2. slot decode attention over the stacked cache's [B,C,nkv,hd]:
     # batch 1 (DecodeEngine) and the continuous engine's 8 slot rows at
@@ -414,6 +444,7 @@ def kernel_cases(dev, flush):
                     main=(dtype == torch.bfloat16 and n_valid == (300,)))
     for dtype in (torch.bfloat16, torch.float32):        # zamba2's block
         decode_case(dtype, 1, (300,), Z_H, 1, Z_HD, main=False)
+        decode_case(dtype, 1, (300,), Q8_H, Q8_G, HD, main=False)  # qwen3-8b
     # merge-adversarial masks at batch 1 (n_split > 1): every valid slot in
     # split 0's tiles; a ring window; one dominant score in the last split
     for dtype in (torch.bfloat16, torch.float32):
@@ -447,7 +478,7 @@ def kernel_cases(dev, flush):
     pda = decode_attention.paged_decode_attention
     pda_plain = decode_attention.paged_decode_attention_plain
 
-    def paged_case(dtype, pos_list, main, holes=(), retired=None):
+    def paged_case(dtype, pos_list, main, holes=(), retired=None, G=G):
         B = len(pos_list)
         perm = torch.randperm(P, generator=torch.Generator().manual_seed(0))
         tables = torch.full((B, n_bt), P, dtype=torch.int32)
@@ -511,6 +542,7 @@ def kernel_cases(dev, flush):
         paged_case(dtype, POS, main=(dtype == torch.bfloat16))
         paged_case(dtype, POS[:6] + (2000, 1500), main=False,
                    holes=((3, 2), (6, 5), (6, 64)), retired=7)
+        paged_case(dtype, POS, main=False, G=Q8_G)          # qwen3-8b's
 
     # -- 4. fused SwiGLU FFN, E = 1: T = 1 at batch-1 decode, 8 at the
     # continuous engine's 8 slots, S at prefill, and the largest padded
@@ -564,6 +596,7 @@ def kernel_cases(dev, flush):
     for dtype, T in ((torch.bfloat16, 1), (torch.bfloat16, 8),
                      (torch.bfloat16, 37), (torch.float32, 1)):
         ffn_case(dtype, T, Z_D, Z_DFF, main=False)       # zamba2's block
+        ffn_case(dtype, T, Q8_D, Q8_DFF, main=False)     # qwen3-8b's
 
     # -- 5. the scans at the recurrent prefills' shapes (B = 1), in the
     # models' layouts: [B, S, H, ...] viewed as [B, H, S, ...]
@@ -729,7 +762,8 @@ def model_phase(dev, cfg, params) -> dict:
     err = _max_err(ref, ker)
     agree = all(torch.equal(a[:, -1:].argmax(-1), b[:, -1:].argmax(-1))
                 for a, b in zip(ref, ker))
-    out = {"phase": "model", "arch": cfg.arch_id, "dtype": "float32",
+    out = {"phase": "model", "arch": cfg.arch_id, "n_layers": cfg.n_layers,
+           "dtype": "float32",
            "prompt_len": 37, "decode_steps": 8,
            "logits_max_abs_err": err,
            "logits_max_abs": max(float(x.abs().max()) for x in ref),
@@ -773,10 +807,11 @@ def model_phase(dev, cfg, params) -> dict:
 
 
 def paged_model_phase(dev, cfg, params) -> dict:
-    """Full-width f32 qwen3-0.6b on the paged path: two ragged prompts
-    admitted by a paged engine (batched prefill, insert into the pool),
-    then 8 paged decode steps, kernels against force_ref, teacher-forced
-    on the reference's greedy tokens."""
+    """A full-width f32 dense model (qwen3-0.6b; qwen3-8b at its cut
+    depth) on the paged path: two ragged prompts admitted by a paged
+    engine (batched prefill, insert into the pool), then 8 paged decode
+    steps, kernels against force_ref, teacher-forced on the reference's
+    greedy tokens."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import decode_step
     from repro_torch.serving import ContinuousBatchingEngine
@@ -794,7 +829,8 @@ def paged_model_phase(dev, cfg, params) -> dict:
     eng._ensure_blocks(steps)
     eng._sync_tables()
     ck = eng.cache["layers"]
-    cr = ck._replace(k=ck.k.clone(), v=ck.v.clone())
+    cr = ck._replace(k=ck.k.clone(), v=ck.v.clone(),
+                     length=ck.length.clone())    # advanced in place
     tok = torch.tensor([[s.last_token] for s in eng.slots], device=dev)
     err = scale = 0.0
     agree, tokens = True, []
@@ -809,7 +845,8 @@ def paged_model_phase(dev, cfg, params) -> dict:
         tokens.append(tok[:, 0].tolist())
         cr, ck = r.cache["layers"], k.cache["layers"]
     launches = LAUNCHES["paged_decode_attention"]
-    out = {"phase": "paged_model", "arch": cfg.arch_id, "dtype": "float32",
+    out = {"phase": "paged_model", "arch": cfg.arch_id,
+           "n_layers": cfg.n_layers, "dtype": "float32",
            "prompt_lens": [len(p) for p in prompts], "block_size": 16,
            "block_tables": ck.block_tables[:, :4].tolist(),
            "decode_steps": steps, "logits_max_abs_err": err,
@@ -824,21 +861,63 @@ def paged_model_phase(dev, cfg, params) -> dict:
     return out
 
 
-def serve_phase(dev, arch: str, kernels: tuple) -> dict:
+def graph_stats(label: str, chunk: int, captures_before: int = 0) -> dict:
+    """The decode graph's counts under ``label`` since the last reset:
+    captures (``captures_before`` made by the warm-up before it), replays,
+    steps (each capture's eager warm-up step plus the replays), chunks and
+    host reads per chunk."""
+    from repro_torch.obs import graph_hooks
+
+    snap = graph_hooks.snapshot()
+    captures = captures_before + snap["captures"].get(label, 0)
+    replays = snap["replays"].get(label, 0)
+    steps = snap["captures"].get(label, 0) + replays
+    reads = snap["transfers"].get(label, 0)
+    return {"label": label, "captures": captures, "replays": replays,
+            "steps": steps, "chunks": steps / chunk, "host_reads": reads,
+            "host_reads_per_chunk": reads / max(steps / chunk, 1e-9)}
+
+
+def decode_launches_expected(cfg, steps: int) -> dict:
+    """The decode kernels' launches ``steps`` decode steps make: slot
+    decode once per attention layer (the hybrid: once per shared-block
+    application) a step; none for RWKV6."""
+    if cfg.has_shared_attn:
+        return {"decode_attention": cfg.n_layers // cfg.attn_every * steps}
+    if cfg.backbone_kind == "attn":
+        return {"decode_attention": cfg.n_layers * steps}
+    return {}
+
+
+def serve_phase(dev, arch: str, kernels: tuple, mode: str = "virtual",
+                n_layers=None) -> dict:
     """The main path of ``arch`` at full width in bf16: allocator ->
-    scheduler -> LLMServer -> DecodeEngine. Each of ``kernels`` must be
-    launched on it."""
+    scheduler -> LLMServer -> DecodeEngine, whose chunks replay the
+    captured decode step. Each of ``kernels`` must be launched on it, the
+    decode graph captured once, the host read once per chunk, and the
+    slot decode kernel's launches must equal one per attention layer per
+    replayed step. Then the eager-vs-graph pin: the first two requests
+    (budgets capped at PIN_BUDGET) through the eager per-token loop and
+    the graph path, tokens equal. ``mode="wall"`` times each request on
+    the host clock (the calibration's points)."""
     from repro_torch.configs import get_config
     from repro_torch.core import paper_problem
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import init_params
+    from repro_torch.obs import graph_hooks
     from repro_torch.queueing_sim import generate_stream
     from repro_torch.serving import DecodeEngine, LLMServer, ServerConfig
 
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     params = init_params(cfg, seed=0, device=dev)
+    params_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
     engine = DecodeEngine(cfg, params, cache_capacity=2048, chunk=16)
+    graph_hooks.reset()
     engine.generate(np.ones((1, 16), np.int32), [4], max_extra_tokens=0)
+    warm_captures = graph_hooks.capture_counts().get("engine.chunk", 0)
     timers = {"prefill_s": 0.0, "generate_s": 0.0}
     prefill, generate = engine.prefill, engine.generate
 
@@ -858,17 +937,20 @@ def serve_phase(dev, arch: str, kernels: tuple) -> dict:
     engine.prefill, engine.generate = timed_prefill, timed_generate
     prob = paper_problem(lam=0.1, alpha=30.0)
     stream = generate_stream(prob.tasks, 0.1, 8, seed=0)
-    srv = LLMServer(prob, ServerConfig(generate_tokens=True), engine=engine)
+    srv = LLMServer(prob, ServerConfig(generate_tokens=True, mode=mode),
+                    engine=engine)
     sol = srv.allocator.solution
     allocation = dict(zip(prob.tasks.names,
                           sol.lengths_int.astype(int).tolist()))
     print("allocation:", json.dumps(allocation))
+    graph_hooks.reset()
     reset_launches()
     t0 = time.perf_counter()
     rep = srv.run(stream)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
+    graph = graph_stats("engine.chunk", engine.chunk, warm_captures)
     extra = srv.cfg.max_extra_tokens
     for c in srv.completed:
         check(c.n_tokens == c.budget + extra,
@@ -876,37 +958,93 @@ def serve_phase(dev, arch: str, kernels: tuple) -> dict:
               f"{c.budget} + {extra}")
     check(rep.n == 8, f"served {rep.n} of 8 requests")
     decode_s = timers["generate_s"] - timers["prefill_s"]
-    out = {"phase": "serve", "arch": cfg.arch_id, "dtype": cfg.dtype,
+    out = {"phase": "serve", "arch": cfg.arch_id, "n_layers": cfg.n_layers,
+           "dtype": cfg.dtype, "mode": mode,
            "report": dataclasses.asdict(rep),
            "budgets_enforced_exactly": True,
            "wall_s": wall, "prefill_s": timers["prefill_s"],
            "decode_s": decode_s,
            "decode_tokens_per_s": rep.tokens_generated / decode_s,
-           "launches": launches,
+           "graph": graph, "launches": launches,
+           "params_gb": params_gb,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "prompt_lens": [q.prompt_len for q in stream.queries]}
     print(json.dumps(out))
     for name in kernels:
         check(launches.get(name, 0) > 0,
               f"{name} was launched 0 times on the {arch} main path")
-    print(json.dumps({**decode_step_breakdown(engine, prefill),
-                      "arch": arch}))
+    check(graph["captures"] == 1 and graph["host_reads_per_chunk"] == 1,
+          f"{arch} serve: decode graph {graph}")
+    for name, n in decode_launches_expected(cfg, graph["steps"]).items():
+        check(launches.get(name, 0) == n,
+              f"{arch} serve: {name} launched {launches.get(name, 0)} "
+              f"times in {graph['steps']} replayed steps, expected {n}")
+    engine.prefill, engine.generate = prefill, generate
+    out["pin"] = eager_graph_pin(engine, stream, srv.completed)
+    print(json.dumps({**decode_step_breakdown(engine), "arch": arch}))
+    out["completed"] = [(c.n_tokens, c.service_time) for c in srv.completed]
     return out
 
 
-def decode_step_breakdown(engine, prefill, steps: int = 16) -> dict:
-    """Where a full-width decode step's time goes: host wall time per step
+def eager_graph_pin(engine, stream, completed, n: int = 2) -> dict:
+    """The first ``n`` requests, budgets capped at PIN_BUDGET, through the
+    eager per-token loop and through the replayed graph: greedy tokens
+    equal; wall time and tokens/s of each (the same card, one process)."""
+    budgets = {c.rid: c.budget for c in completed}
+    rows = []
+    for q in stream.queries[:n]:
+        prompt = (np.arange(q.prompt_len) % 97 + 1)[None].astype(np.int32)
+        budget = min(budgets[q.qid], PIN_BUDGET)
+        row = {"rid": q.qid, "prompt_len": q.prompt_len, "budget": budget}
+        for name, use_scan in (("eager_loop", False), ("graph", True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = engine.generate(prompt, [budget], max_extra_tokens=8,
+                                  use_scan=use_scan)
+            dt = time.perf_counter() - t0
+            row[name] = {"s": dt, "tokens_per_s":
+                         int(res["n_generated"][0]) / dt}
+            row[name + "_tokens"] = res["tokens"][0].tolist()
+        row["equal"] = row.pop("eager_loop_tokens") == row.pop("graph_tokens")
+        rows.append(row)
+    out = {"phase": "eager_graph_pin", "arch": engine.cfg.arch_id,
+           "requests": rows}
+    print(json.dumps(out))
+    check(all(r["equal"] for r in rows),
+          f"{engine.cfg.arch_id}: graph tokens differ from the eager loop")
+    return out
+
+
+def decode_step_breakdown(engine, steps: int = 16) -> dict:
+    """Where a full-width decode step's time goes, eager and replayed, at
+    position ~100 of a 2048-slot cache: host wall time per step
     (synchronised) against the device time of the kernels the profiler
-    saw, at position ~100 of a 2048-slot cache."""
-    logits, cache = prefill(np.arange(96, dtype=np.int32)[None] % 97 + 1)
+    saw. The eager step is the per-token loop's; the graph step replays
+    the engine's captured (1, chunk) step."""
+    prompt = np.arange(96, dtype=np.int32)[None] % 97 + 1
+    logits, cache = engine.prefill(prompt)
     state = {"token": logits.argmax(-1), "cache": cache}
 
-    def step():
+    def eager():
         state["token"], state["cache"] = engine._step(
             state["token"], state["cache"], None)
     for _ in range(4):                               # warm
-        step()
-    return {"phase": "decode_step_breakdown",
-            **profile_steps(step, steps, steps)}
+        eager()
+    out = {"phase": "decode_step_breakdown",
+           "eager": profile_steps(eager, steps, steps)}
+    logits, cache = engine.prefill(prompt)
+    big = np.array([10 ** 6], np.int32)
+    key, _, step = engine._prepare(logits.argmax(-1), cache, big, big, None,
+                                   engine.chunk)
+
+    def replay():
+        engine._graphs.run(key, step)
+    for _ in range(4):
+        replay()
+    out["graph"] = profile_steps(replay, steps, steps)
+    out["wall_speedup"] = (out["eager"]["wall_ms_per_step"]
+                           / out["graph"]["wall_ms_per_step"])
+    return out
 
 
 def profile_steps(run, n_calls: int, steps: int) -> dict:
@@ -948,6 +1086,7 @@ def continuous_serve_phase(dev, cfg, params) -> dict:
     8) -> paged ContinuousBatchingEngine, on the serve phase's stream."""
     from repro_torch.core import paper_problem
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.obs import graph_hooks
     from repro_torch.queueing_sim import generate_stream
     from repro_torch.serving import (ContinuousBatchingEngine, LLMServer,
                                      ServerConfig)
@@ -955,39 +1094,49 @@ def continuous_serve_phase(dev, cfg, params) -> dict:
     engine = ContinuousBatchingEngine(cfg, params, max_slots=8,
                                       capacity=2048, chunk=16, paged=True,
                                       block_size=16)
-    engine.admit(-1, np.ones(16, np.int64), 4, 0)          # warm
+    graph_hooks.reset()
+    engine.admit(-1, np.ones(16, np.int64), 4, 0)          # warm, capture
     while engine.n_active:
         engine.step_chunk()
+    warm_captures = graph_hooks.capture_counts().get("continuous.paged", 0)
     prob = paper_problem(lam=0.1, alpha=30.0)
     stream = generate_stream(prob.tasks, 0.1, 8, seed=0)
     srv = LLMServer(prob, ServerConfig(generate_tokens=True, batch_size=8),
                     engine=engine)
+    graph_hooks.reset()
     reset_launches()
     t0 = time.perf_counter()
     rep = srv.run(stream)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
+    graph = graph_stats("continuous.paged", engine.chunk, warm_captures)
     extra = srv.cfg.max_extra_tokens
     for c in srv.completed:
         check(c.n_tokens == c.budget + extra,
               f"request {c.rid}: {c.n_tokens} tokens for budget "
               f"{c.budget} + {extra}")
     check(rep.n == 8, f"served {rep.n} of 8 requests")
-    steps = launches.get("paged_decode_attention", 0) // cfg.n_layers
     out = {"phase": "continuous_serve", "arch": cfg.arch_id,
            "n_layers": cfg.n_layers, "dtype": cfg.dtype, "engine": "ContinuousBatchingEngine("
            "paged=True, max_slots=8, capacity=2048, block_size=16, "
            "chunk=16)", "batch_size": 8,
            "report": dataclasses.asdict(rep),
            "budgets_enforced_exactly": True, "wall_s": wall,
-           "decode_steps": steps,
+           "decode_steps": graph["steps"], "graph": graph,
            "tokens_per_s": rep.tokens_generated / wall,
            "launches": launches}
     print(json.dumps(out))
     for name in ("flash_attention", "fused_ffn", "paged_decode_attention"):
         check(launches.get(name, 0) > 0,
               f"{name} was launched 0 times on the continuous path")
+    check(graph["captures"] == 1 and graph["host_reads_per_chunk"] == 1,
+          f"continuous serve: decode graph {graph}")
+    check(launches.get("paged_decode_attention", 0)
+          == cfg.n_layers * graph["steps"],
+          f"continuous serve: paged decode launched "
+          f"{launches.get('paged_decode_attention', 0)} times in "
+          f"{graph['steps']} replayed steps of {cfg.n_layers} layers")
     out["budgets"] = {c.rid: c.budget for c in srv.completed}
     out["stream"] = stream
     return out
@@ -1004,6 +1153,7 @@ def rolling_drain_phase(dev, cfg, params, served, n_blocks: int = 64) -> dict:
     import math
 
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.obs import graph_hooks
     from repro_torch.serving import ContinuousBatchingEngine
 
     budgets = served["budgets"]
@@ -1023,6 +1173,7 @@ def rolling_drain_phase(dev, cfg, params, served, n_blocks: int = 64) -> dict:
             block_size=16, n_blocks=n_blocks)
         pending, done, refused, chunks, peak = list(reqs), {}, [], 0, 0
         torch.cuda.synchronize()
+        graph_hooks.reset()
         reset_launches()
         t0 = time.perf_counter()
         while pending or eng.n_active:
@@ -1046,6 +1197,9 @@ def rolling_drain_phase(dev, cfg, params, served, n_blocks: int = 64) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(LAUNCHES)
+        graph = graph_stats(eng._graphs.label, 16)
+        check(graph["captures"] == 1 and graph["host_reads_per_chunk"] == 1,
+              f"{mode} drain: decode graph {graph}")
         for rid, _, budget, extra in reqs:
             check(len(done[rid]) == budget + extra,
                   f"{mode} drain: request {rid} got {len(done[rid])} tokens "
@@ -1058,10 +1212,15 @@ def rolling_drain_phase(dev, cfg, params, served, n_blocks: int = 64) -> dict:
         check(launches.get(other, 0) == 0,
               f"{other} was launched in the {mode} drain")
         tokens[mode] = done
+        check(launches.get(decode, 0) == cfg.n_layers * graph["steps"],
+              f"{mode} drain: {decode} launched {launches.get(decode, 0)} "
+              f"times "
+              f"in {graph['steps']} replayed steps")
         row = {"wall_s": wall, "chunks": chunks,
                "tokens_per_s": sum(map(len, done.values())) / wall,
                "refused_per_admission": refused,
-               "peak_tokens_in_use": peak, "launches": launches}
+               "peak_tokens_in_use": peak, "graph": graph,
+               "launches": launches}
         if paged:
             check(refused[0] > 0, "the paged pool admitted every request "
                   "at once: no back-pressure")
@@ -1075,15 +1234,20 @@ def rolling_drain_phase(dev, cfg, params, served, n_blocks: int = 64) -> dict:
             row["admission_groups"] = {str(c): g for c, g in groups.items()}
         if mode != "slot_paged_groups":
             # one profiled chunk of 16 steps at 8 live slots, positions ~100
-            # (8 requests of 96 + 31 tokens fill the 64-block pool exactly)
-            check(all(eng.admit_many(
-                [(1000 + i, np.arange(96) % 97 + 1, 32, 0)
-                 for i in range(8)])),
-                f"{mode}: 8 profiling requests not admitted")
-            row["breakdown_8_slots"] = profile_steps(
-                lambda eng=eng: eng.step_chunk(16), 1, 16)
-            while eng.n_active:
-                eng.step_chunk()
+            # (8 requests of 96 + 31 tokens fill the 64-block pool exactly),
+            # replayed; then with the step run eagerly (a cache whose device
+            # says CPU captures nothing), the step before the graph
+            for name in ("breakdown_8_slots", "breakdown_8_slots_eager"):
+                if name.endswith("eager"):
+                    eng._graphs = graph_hooks.GraphCache("eager", "cpu")
+                check(all(eng.admit_many(
+                    [(1000 + i, np.arange(96) % 97 + 1, 32, 0)
+                     for i in range(8)])),
+                    f"{mode}: 8 profiling requests not admitted")
+                row[name] = profile_steps(
+                    lambda eng=eng: eng.step_chunk(16), 1, 16)
+                while eng.n_active:
+                    eng.step_chunk()
         out[mode] = row
         del eng
         torch.cuda.empty_cache()
@@ -1097,6 +1261,84 @@ def rolling_drain_phase(dev, cfg, params, served, n_blocks: int = 64) -> dict:
     out["bf16_tokens_agree_paged_vs_slot"] = (
         out["requests_agreeing"] == len(reqs))
     print(json.dumps(out))
+    return out
+
+
+def step_latency_points(dev, cfg, params) -> dict:
+    """The continuous engine's replayed decode step at occupancies 1, 2, 4
+    and 8: for each b a paged engine of b slots, all live (prompts of 96
+    tokens), one chunk of 16 to warm and capture, then the mean step of two
+    synchronised chunks on the host clock (its one host read and the
+    inputs' copy included, as a serving chunk has them)."""
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    points = []
+    for b in OCCUPANCIES:
+        eng = ContinuousBatchingEngine(cfg, params, max_slots=b,
+                                       capacity=2048, chunk=16, paged=True,
+                                       block_size=16)
+        check(all(eng.admit_many([(i, np.arange(96) % 97 + 1, 200, 0)
+                                  for i in range(b)])),
+              f"occupancy {b}: not admitted")
+        eng.step_chunk()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            eng.step_chunk()
+        points.append((b, (time.perf_counter() - t0) / 32))
+        check(eng.n_active == b, f"occupancy {b}: a slot retired early")
+        del eng
+    out = {"phase": "step_latency_points", "arch": cfg.arch_id,
+           "n_layers": cfg.n_layers, "engine": "ContinuousBatchingEngine("
+           "paged=True, max_slots=b, capacity=2048, block_size=16, chunk=16)",
+           "points_b_s": points}
+    print(json.dumps(out))
+    return out
+
+
+def calibration_phase(served_8b: dict, occupancy: dict) -> dict:
+    """The paper's constants fitted to this card: ``fit_latency`` to the
+    qwen3-8b wall-mode serve's per-request (tokens, seconds),
+    ``fit_step_latency`` to the continuous engine's step at occupancies
+    1-8; then ``paper_problem`` solved again with every task's t0 and c
+    set to the fit, its budgets beside the paper's, and the occupancy
+    fixed point of the fitted step model at the fitted constants."""
+    from repro_torch.core import (PAPER_TABLE1_LSTAR, Problem, TaskSet,
+                                  batch_service_wait, fit_latency,
+                                  fit_step_latency, paper_problem, solve)
+
+    pts = served_8b["completed"]
+    lat = fit_latency([n for n, _ in pts], [t for _, t in pts])
+    b, t = zip(*occupancy["points_b_s"])
+    step = fit_step_latency(b, t)
+    paper = paper_problem(lam=0.1, alpha=30.0)
+    n = paper.tasks.n_tasks
+    tasks = TaskSet(names=paper.tasks.names, A=paper.tasks.A,
+                    b=paper.tasks.b, D=paper.tasks.D,
+                    t0=np.full(n, lat.t0), c=np.full(n, lat.c),
+                    pi=paper.tasks.pi)
+    fitted = Problem(tasks=tasks, server=paper.server)
+    sol, sol_paper = solve(fitted), solve(paper)
+    wait = batch_service_wait(tasks, sol.lengths_int, 0.1, step, 8)
+    out = {"phase": "calibration", "card_fit": {
+        "latency": {"arch": served_8b["arch"], "points_tokens_s": pts,
+                    "t0_s": lat.t0, "c_s_per_token": lat.c,
+                    "rmse_s": lat.rmse},
+        "step": {"arch": occupancy["arch"], "n_layers":
+                 occupancy["n_layers"], "d0_s": step.d0, "d1_s": step.d1}},
+        "budgets": {"tasks": list(paper.tasks.names),
+                    "card_fit_int": sol.lengths_int.astype(int).tolist(),
+                    "card_fit_cont": sol.lengths_cont.tolist(),
+                    "paper_constants_int":
+                        sol_paper.lengths_int.astype(int).tolist(),
+                    "paper_table1_lstar": list(PAPER_TABLE1_LSTAR)},
+        "objective_card_fit": sol.value_int,
+        "occupancy_at_card_fit": {"max_batch": 8, "b_bar": wait.b_bar,
+                                  "ratio": wait.ratio,
+                                  "mean_wait_s": wait.mean_wait}}
+    print(json.dumps(out))
+    check(lat.c > 0 and np.isfinite(lat.rmse), "latency fit failed")
+    check(bool(np.all(np.isfinite(sol.lengths_cont))), "re-solve failed")
     return out
 
 
@@ -1145,28 +1387,37 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
 
-    def f32_model(arch):
+    def f32_model(arch, n_layers=None):
         cfg32 = dataclasses.replace(get_config(arch), dtype="float32")
+        if n_layers is not None:
+            cfg32 = dataclasses.replace(cfg32, n_layers=n_layers)
         return cfg32, init_params(cfg32, seed=0, device=dev)
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
 
     cfg32, params32 = f32_model("qwen3-0.6b")
     model_phase(dev, cfg32, params32)
     paged_model_phase(dev, cfg32, params32)
     del params32
-    torch.cuda.empty_cache()
+    free()
 
     attn_kernels = ("flash_attention", "decode_attention", "fused_ffn")
     served = serve_phase(dev, "qwen3-0.6b", attn_kernels)
-    torch.cuda.empty_cache()
+    free()
     cfg = dataclasses.replace(get_config("qwen3-0.6b"),
                               n_layers=QWEN3_BATCHED_LAYERS)
     params = init_params(cfg, seed=0, device=dev)
     continuous = continuous_serve_phase(dev, cfg, params)
     rolling_drain_phase(dev, cfg, params, continuous)
+    occupancy = step_latency_points(dev, cfg, params)
     del params
-    torch.cuda.empty_cache()
+    free()
 
-    # the recurrent and hybrid paths: each model freed before the next
+    # the recurrent and hybrid paths, then the paper's model: each model
+    # freed before the next
     by_path = {"qwen3-0.6b serve": served["launches"],
                "qwen3-0.6b continuous serve": continuous["launches"]}
     for arch, kernels in (("rwkv6-1.6b", ("rwkv6_scan",)),
@@ -1174,9 +1425,18 @@ def main() -> int:
         cfg32, params32 = f32_model(arch)
         model_phase(dev, cfg32, params32)
         del params32
-        torch.cuda.empty_cache()
+        free()
         by_path[f"{arch} serve"] = serve_phase(dev, arch, kernels)["launches"]
-        torch.cuda.empty_cache()
+        free()
+    cfg32, params32 = f32_model("qwen3-8b", n_layers=QWEN3_8B_F32_LAYERS)
+    model_phase(dev, cfg32, params32)
+    paged_model_phase(dev, cfg32, params32)
+    del params32
+    free()
+    served_8b = serve_phase(dev, "qwen3-8b", attn_kernels, mode="wall")
+    by_path["qwen3-8b serve"] = served_8b["launches"]
+    free()
+    calibration_phase(served_8b, occupancy)
     # each kernel's launches on the path that runs it: the slot kernels on
     # qwen3's DecodeEngine serve, the paged kernel on the continuous serve,
     # each scan on its family's serve

@@ -1,20 +1,20 @@
 """Architecture registry of the port. Select with ``--arch <id>``.
 
-The dense ``qwen3-0.6b``, the recurrent ``rwkv6-1.6b`` and the hybrid
-``zamba2-7b`` are ported; the other ids of ``repro.configs`` raise
-``KeyError`` until their model families come across.
+The dense ``qwen3-0.6b`` and ``qwen3-8b`` (the paper's model), the
+recurrent ``rwkv6-1.6b`` and the hybrid ``zamba2-7b`` are ported; the
+other ids of ``repro.configs`` raise ``KeyError`` until their model
+families come across.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ("qwen3-0.6b", "rwkv6-1.6b", "zamba2-7b")
+ARCH_IDS = ("qwen3-0.6b", "qwen3-8b", "rwkv6-1.6b", "zamba2-7b")
 
 #: ids the JAX package registers that the port does not have yet
 NOT_YET_PORTED = (
     "musicgen-medium", "llava-next-mistral-7b", "deepseek-moe-16b",
     "granite-moe-3b-a800m", "stablelm-3b", "olmo-1b", "starcoder2-3b",
-    "qwen3-8b",
 )
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}

@@ -4,11 +4,13 @@ Streams Poisson arrivals through the allocator-driven FIFO server. With
 --real-engine the model generates budget-enforced tokens; without it the
 calibrated latency model drives the virtual clock alone. The model runs at
 its published widths (random weights from --seed) on --device, which
-defaults to cuda; --reduced gives the 2-layer CPU test variant.
+defaults to cuda; --reduced gives the 2-layer CPU test variant. On the
+card the engine decodes by replaying its captured CUDA graph of the
+decode step (``serving/engine.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --real-engine --queries 8
     PYTHONPATH=src python -m repro_torch.launch.serve --real-engine \\
-        --arch rwkv6-1.6b --queries 8          # or --arch zamba2-7b
+        --arch qwen3-8b --queries 8     # or --arch rwkv6-1.6b, zamba2-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
         --real-engine --queries 3
 """

@@ -6,7 +6,7 @@ The full-precision paths of ``repro.models.attention``:
     returns the K/V tensors so prefill can seed a decode cache.
   * ``attn_decode_stacked`` — one-token step that writes the new token's
     K/V in place into the layer-stacked slot cache and attends over it, at
-    one position for the whole batch (a host int) or at one position per
+    one position for the whole batch (a 0-d tensor) or at one position per
     row (a ``[B]`` tensor, continuous batching).
   * ``attn_decode_paged``   — one-token step against the paged block pool.
 
@@ -19,7 +19,7 @@ buffers are not ported yet.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Union
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -35,15 +35,16 @@ class KVCache(NamedTuple):
 
     ``k``/``v`` are ``[L, B, C, nkv, hd]`` (C = capacity) and are updated in
     place by :func:`attn_decode_stacked`. ``length`` is the position of the
-    next token, the same in every layer: a host int when every row sits at
-    the same position (``DecodeEngine``), so writing the next token's slot
-    needs no device-to-host read; or an int32 ``[B]`` tensor on the device
-    with one position per row (``ContinuousBatchingEngine``).
+    next token, the same in every layer, an int32 tensor on the cache's
+    device that the decode step advances in place: 0-d when every row sits
+    at the same position (``DecodeEngine``), or ``[B]`` with one position
+    per row (``ContinuousBatchingEngine``). Neither is read on the host, so
+    a captured CUDA graph of the step reads and advances the live value.
     """
 
     k: Tensor
     v: Tensor
-    length: Union[int, Tensor]
+    length: Tensor
 
     @property
     def capacity(self) -> int:
@@ -169,7 +170,7 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
     dtype = dtype or cfg.tdtype
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
-                   length=0)
+                   length=torch.zeros((), dtype=torch.int32, device=device))
 
 
 def cache_from_prefill(cfg: ModelConfig, k: Tensor, v: Tensor,
@@ -183,7 +184,8 @@ def cache_from_prefill(cfg: ModelConfig, k: Tensor, v: Tensor,
     cache = init_cache(cfg, B, capacity, k.device, k.dtype, n_layers=L)
     cache.k[:, :, :S] = k
     cache.v[:, :, :S] = v
-    return cache._replace(length=S)
+    cache.length.fill_(S)
+    return cache
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
@@ -202,13 +204,14 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
         length=torch.zeros(batch, dtype=torch.int32, device=device))
 
 
-def _decode_valid(pos, C: int, device) -> Tensor:
+def _decode_valid(pos: Tensor, C: int, device) -> Tensor:
     """[1 or B, C] bool mask over cache slots: slots <= pos are filled
-    (``pos`` a host int, or a ``[B]`` tensor of per-row positions)."""
+    (``pos`` a 0-d shared position, or a ``[B]`` tensor of per-row
+    positions)."""
     slots = torch.arange(C, device=device)
-    if isinstance(pos, Tensor):
-        return slots[None] <= pos[:, None]
-    return (slots <= pos)[None]
+    if pos.dim() == 0:
+        return (slots <= pos)[None]
+    return slots[None] <= pos[:, None]
 
 
 def _decode_attend(cfg: ModelConfig, p: dict, q: Tensor, k: Tensor,
@@ -224,43 +227,42 @@ def _decode_attend(cfg: ModelConfig, p: dict, q: Tensor, k: Tensor,
     return torch.matmul(out.reshape(B, 1, -1), p["wo"])
 
 
-def _rope_positions(pos, device) -> Tensor:
-    """RoPE positions of the new token: [1] for a host int, [B, 1] per row."""
-    if isinstance(pos, Tensor):
-        return pos[:, None]
-    return torch.arange(pos, pos + 1, device=device)
+def _rope_positions(pos: Tensor) -> Tensor:
+    """RoPE positions of the new token: [1] for a shared position, [B, 1]
+    per row."""
+    return pos.reshape(1) if pos.dim() == 0 else pos[:, None]
 
 
 def attn_decode_stacked(cfg: ModelConfig, p: dict, x: Tensor, kv: KVCache,
-                        pos: Union[int, Tensor], layer: int,
+                        pos: Tensor, layer: int,
                         force_ref: bool = False) -> Tensor:
     """One-token step writing straight into the STACKED cache.
 
-    x [B,1,d]; ``pos`` is the new token's position: a host int shared by
-    every row, or an int32 ``[B]`` tensor, one per row. The JAX package's
+    x [B,1,d]; ``pos`` is the new token's position, an int32 tensor: 0-d
+    and shared by every row, or ``[B]``, one per row. The JAX package's
     ``dynamic_update_slice`` at a traced position becomes an in-place write
     into ``kv.k[layer, :, slot]``; like that op, a shared position past the
     capacity writes the last slot. Its per-row scatter drops a row whose
     position is past the capacity (a retired row riding a chunk); here that
     row's slot index is clamped and its old value written back. No
-    device-to-host read happens here. Returns y [B,1,d]; the caller owns
-    the position.
+    device-to-host read happens here (the slot is an index tensor, never a
+    host int), so the step can be captured in a CUDA graph. Returns
+    y [B,1,d]; the caller owns the position.
     """
-    q, k_new, v_new = _project_qkv(cfg, p, x,
-                                   _rope_positions(pos, x.device))
+    q, k_new, v_new = _project_qkv(cfg, p, x, _rope_positions(pos))
     C = kv.capacity
-    if isinstance(pos, Tensor):
+    slot = pos.clamp(max=C - 1)
+    if pos.dim() == 0:
+        idx = slot.reshape(1).long()
+        kv.k[layer].index_copy_(1, idx, k_new)
+        kv.v[layer].index_copy_(1, idx, v_new)
+    else:
         rows = torch.arange(x.shape[0], device=x.device)
-        slot = pos.clamp(max=C - 1)
         keep = (pos >= C)[:, None, None]
         kv.k[layer, rows, slot] = torch.where(keep, kv.k[layer, rows, slot],
                                               k_new[:, 0])
         kv.v[layer, rows, slot] = torch.where(keep, kv.v[layer, rows, slot],
                                               v_new[:, 0])
-    else:
-        slot = min(pos, C - 1)
-        kv.k[layer, :, slot] = k_new[:, 0]
-        kv.v[layer, :, slot] = v_new[:, 0]
     valid = _decode_valid(pos, C, x.device)
     return _decode_attend(cfg, p, q, kv.k[layer], kv.v[layer], valid,
                           force_ref)

@@ -33,7 +33,8 @@ class MambaCache(NamedTuple):
     conv_x: Tensor   # [..., B, d_conv - 1, d_in]  trailing conv inputs
     conv_bc: Tensor  # [..., B, d_conv - 1, 2*ds]  trailing B/C conv inputs
     ssd: Tensor      # [..., B, nh, hd, ds] f32 recurrent state
-    length: int      # tokens seen, the same in every layer
+    length: int      # tokens seen, host bookkeeping: no decode op reads
+                     # it, and a replayed CUDA graph step does not advance it
 
 
 def dims(cfg: ModelConfig):

@@ -36,7 +36,8 @@ class RWKVCache(NamedTuple):
     shift_tm: Tensor   # [..., B, d] previous token (time mix)
     shift_cm: Tensor   # [..., B, d] previous token (channel mix)
     wkv: Tensor        # [..., B, nh, hd, hd] f32 state
-    length: int        # tokens seen, the same in every layer
+    length: int        # tokens seen, host bookkeeping: no decode op reads
+                       # it, and a replayed CUDA graph step does not advance it
 
 
 def dims(cfg: ModelConfig):

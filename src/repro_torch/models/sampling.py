@@ -6,7 +6,10 @@ Stochastic sampling cannot reproduce ``jax.random``'s numbers, so it is
 held to the JAX package only in distribution:
 
 * :func:`sample` (``DecodeEngine``) draws from an explicit
-  ``torch.Generator``;
+  ``torch.Generator``, by the exponential race ``argmax(p / q)``, q ~
+  Exp(1), which is how ``torch.multinomial`` draws one sample, without
+  the host-side checks that keep ``multinomial`` out of a CUDA graph (the
+  engine registers the generator with the graph);
 * :func:`fold_sample` (``ContinuousBatchingEngine``) is counter-based: token
   ``g`` of request ``rid`` is a Gumbel-max draw whose noise is a hash of
   ``(seed, rid, g, vocab index)``, computed on the logits' device, so a
@@ -33,7 +36,8 @@ def sample(logits: Tensor, generator: Optional[torch.Generator] = None,
         raise ValueError("stochastic sampling (temperature > 0) needs a "
                          "generator")
     probs = torch.softmax(logits / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)
+    q = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / q, dim=-1, keepdim=True)
 
 
 _MASK32 = 0xFFFFFFFF

@@ -274,7 +274,16 @@ def _recurrent_decode(cfg: ModelConfig, kind: str, p: dict, x: Tensor,
 
 
 def _advance(cache):
-    return None if cache is None else cache._replace(length=cache.length + 1)
+    """Advance a cache's positions by one: a KV cache's length tensor in
+    place, so a replayed CUDA graph of the step moves the live positions;
+    the recurrent caches' host-int ``length`` (no decode op reads it)
+    through a new tuple around the same state tensors."""
+    if cache is None:
+        return None
+    if isinstance(cache.length, Tensor):
+        cache.length.add_(1)
+        return cache
+    return cache._replace(length=cache.length + 1)
 
 
 def decode_step(cfg: ModelConfig, params: dict, token: Tensor, cache: dict,
@@ -287,8 +296,11 @@ def decode_step(cfg: ModelConfig, params: dict, token: Tensor, cache: dict,
     stacked :class:`KVCache` (one position for the batch, or one per row)
     or a :class:`PagedKVCache`. Recurrent states are copied into their
     stacked leaves; the hybrid's shared block attends over application
-    ``gi`` of its stacked ``KVCache``. The returned cache shares those
-    tensors, with its positions advanced by one.
+    ``gi`` of its stacked ``KVCache``. The KV caches' positions advance in
+    place, so the returned cache is the argument's own KV cache objects;
+    it shares every state tensor, with its positions advanced by one. No
+    op reads a tensor on the host, so the step can be captured in a CUDA
+    graph.
     """
     x = embed_tokens(cfg, params["embed"], token)
     blocks, kind = params["blocks"], cfg.backbone_kind

@@ -9,11 +9,20 @@ position:
   into the engine cache by one indexed write over a slot-index vector,
 * one shared decode step advances every active slot, either per token
   (``step``, the reference) or ``chunk`` steps at a time (``step_chunk``):
-  the JAX package's fused ``lax.scan`` becomes a loop of decode steps
-  whose tokens stay on the device, and the host reads them back once per
-  chunk,
+  the JAX package's fused ``lax.scan`` becomes one decode step over
+  static buffers sized ``max_slots`` (the slots' tokens, request ids and
+  emission indices, the cache, the chunk's ``[chunk, max_slots]`` tokens
+  written at a device-side step index), captured as a CUDA graph once per
+  ``chunk`` and replayed ``chunk`` times (``obs.graph_hooks`` labels
+  ``"continuous.slot"`` and ``"continuous.paged"``); the host copies the
+  slots' state into those buffers before the replays and reads the
+  chunk's tokens back once (on a CPU device the same step runs eagerly),
 * strict per-slot budget enforcement (the paper's control knob): a slot
   retires when ``budget + max_extra`` tokens are out.
+
+Admission (``_admit_group``, a prefill whose shape follows the prompts)
+stays eager, as do the block-table refresh and the host-to-device copies
+of each chunk's inputs: all of them run between replays.
 
 Paged mode (``paged=True``): the KV cache is a shared pool of fixed-size
 blocks (:class:`~..models.attention.PagedKVCache`) and admission is gated
@@ -59,6 +68,7 @@ import torch
 from ..models import decode_step, fold_sample, forward
 from ..models.attention import init_cache, init_paged_cache
 from ..models.config import ModelConfig
+from ..obs import graph_hooks
 
 
 @dataclasses.dataclass
@@ -192,8 +202,38 @@ class ContinuousBatchingEngine:
             self.cache = {"layers": kv._replace(length=torch.zeros(
                 max_slots, dtype=torch.int32, device=self.device))}
         self.slots: list = [None] * max_slots
+        self._graphs = graph_hooks.GraphCache(
+            "continuous.paged" if paged else "continuous.slot", self.device)
+        # the captured step's per-slot inputs (rows: token, request id,
+        # emission index), and per chunk its outputs
+        self._inputs = torch.zeros((3, max_slots), dtype=torch.long,
+                                   device=self.device)
+        self._outs: dict = {}
 
     # ------------------------------------------------------------ internals
+    def _chunk_step(self, chunk: int):
+        """One decode step of every slot over the static buffers: the
+        next tokens land in row ``idx`` of the chunk's ``[chunk, slots]``
+        output, the step index wraps at ``chunk``, and every position
+        advances in place."""
+        if chunk not in self._outs:
+            self._outs[chunk] = (
+                torch.zeros((chunk, self.max_slots), dtype=torch.long,
+                            device=self.device),
+                torch.zeros((), dtype=torch.long, device=self.device))
+        out, idx = self._outs[chunk]
+        token, rids, gidx = self._inputs
+
+        def step():
+            res = decode_step(self.cfg, self.params, token[:, None],
+                              self.cache)
+            nxt = self._next_tokens(res.logits[:, 0], rids, gidx)
+            token.copy_(nxt)
+            out.index_copy_(0, idx.reshape(1), nxt[None])
+            gidx.add_(1)
+            idx.add_(1).remainder_(chunk)
+        return step
+
     def _rows(self, values, dtype=torch.int64) -> torch.Tensor:
         """A per-slot host list as a device tensor (host-to-device only)."""
         return torch.tensor(values, dtype=dtype, device=self.device)
@@ -360,7 +400,7 @@ class ContinuousBatchingEngine:
             self._insert_paged(k, v, slot_idx, lengths_d)
         else:
             self._insert(k, v, slot_idx, lengths_d)
-        firsts = firsts.cpu().numpy()
+        firsts = graph_hooks.to_host(firsts, "continuous.admit")
         for r, (slot, (rid, _, budget, max_extra)) in enumerate(group):
             first = int(firsts[r])
             self.slots[slot] = Slot(
@@ -422,8 +462,9 @@ class ContinuousBatchingEngine:
         """Advance every active slot by up to ``chunk`` tokens; returns the
         Slots that finished inside the chunk.
 
-        The chunk's decode steps run back to back with their tokens on the
-        device, and the host reads them once at the end. Admissions happen
+        The chunk's decode steps are ``chunk`` replays of the step
+        captured for this ``chunk`` (eager on a CPU device), with their
+        tokens on the device, and the host reads them once at the end. Admissions happen
         at chunk boundaries; a slot whose remaining budget is shorter than
         the chunk retires mid-chunk (its surplus steps are discarded here;
         in paged mode its surplus writes past its reservation land on the
@@ -435,22 +476,18 @@ class ContinuousBatchingEngine:
         if self.paged:
             self._ensure_blocks(chunk)
             self._sync_tables()
-        token = self._rows([s.last_token if s else 0 for s in self.slots])
-        rids = gidx = None
-        if self.temperature > 0.0:   # empty rows draw throwaway tokens
-            rids = self._rows([s.rid if s else 0 for s in self.slots])
-            gidx = self._rows([s.generated if s else 0 for s in self.slots])
-        cache = self.cache
-        toks = []
+        # the slots' state into the static inputs in one host-to-device
+        # copy, before any replay (empty rows decode throwaway tokens)
+        self._inputs.copy_(torch.tensor(
+            [[s.last_token if s else 0 for s in self.slots],
+             [s.rid if s else 0 for s in self.slots],
+             [s.generated if s else 0 for s in self.slots]],
+            dtype=torch.long))
+        step = self._chunk_step(chunk)
         for _ in range(chunk):
-            out = decode_step(self.cfg, self.params, token[:, None], cache)
-            cache = out.cache
-            token = self._next_tokens(out.logits[:, 0], rids, gidx)
-            toks.append(token)
-            if gidx is not None:
-                gidx = gidx + 1
-        self.cache = cache
-        toks = torch.stack(toks).cpu().numpy()            # [chunk, slots]
+            self._graphs.run(chunk, step)
+        toks = graph_hooks.to_host(self._outs[chunk][0],
+                                   self._graphs.label)   # [chunk, slots]
         finished = []
         for i, s in enumerate(self.slots):
             if s is None:

@@ -7,19 +7,29 @@ the reasoning phase).
 
 Two execution paths share one contract, as in ``repro.serving.engine``:
 
-* **Chunked fast path** (default, ``use_scan=True``): the JAX package's
-  fused ``lax.scan`` becomes a loop of ``chunk`` decode steps whose
-  budget / EOS / alive masks and emitted tokens stay on the device; the
-  host reads them back once per chunk (one device-to-host copy). The last
-  chunk runs its full length (finished rows emit masked zeros).
-* **Per-token reference loop** (``use_scan=False``): one decode step and
-  one host sync per token. With greedy sampling both paths must produce
-  the same tokens.
+* **Chunked fast path** (default, ``use_scan=True``): the JAX package
+  compiles its fused ``lax.scan`` chunk once and dispatches it as one
+  executable; here one decode step over static device buffers (the
+  token, the budget / EOS / alive masks, the emission counts, the cache
+  and the chunk's ``[B, chunk]`` tokens, written at a device-side step
+  index) is captured as a CUDA graph once per ``(B, chunk)`` shape, on
+  the engine's capacity, and replayed ``chunk`` times a chunk. Every
+  budget, prompt length and request reuses that capture (counted by
+  ``obs.graph_hooks`` under ``"engine.chunk"``). The host reads the
+  chunk's tokens, the alive mask and the counts back once per chunk
+  (``graph_hooks.to_host``). The last chunk runs its full length
+  (finished rows emit masked zeros). On a CPU device the same step runs
+  eagerly; on CUDA a capture that fails raises.
+* **Per-token reference loop** (``use_scan=False``): one eager decode
+  step and one host sync per token. With greedy sampling both paths must
+  produce the same tokens.
 
 The engine runs every ported family (dense, RWKV6, the Mamba2 hybrid) on
 the device its parameters live on: on a CUDA device every prefill
 attention, wkv or SSD scan, decode attention and SwiGLU MLP goes through
-the Hopper kernels. The decode cache is updated in place.
+the Hopper kernels, and the decode kernels run inside the captured step.
+Prefill stays eager (its shapes follow the prompt). The decode cache is
+updated in place.
 """
 from __future__ import annotations
 
@@ -30,6 +40,10 @@ import torch
 
 from ..models import decode_step, forward, sample
 from ..models.config import ModelConfig
+from ..obs import graph_hooks
+
+#: the EOS buffer's value when no EOS token is given: no token id matches
+_NO_EOS = -1
 
 
 class DecodeEngine:
@@ -43,6 +57,14 @@ class DecodeEngine:
         self.temperature = temperature
         self.chunk = chunk
         self.use_scan = use_scan
+        # the one generator stochastic sampling draws from, reseeded per
+        # call and registered with every captured step
+        self._generator = (torch.Generator(device=self.device)
+                           if temperature > 0.0 else None)
+        self._graphs = graph_hooks.GraphCache(
+            "engine.chunk", self.device,
+            () if self._generator is None else (self._generator,))
+        self._static: dict = {}       # (B, chunk) -> the step's buffers
 
     def prefill(self, prompts: np.ndarray):
         """Prompt tokens [B, S] -> (last-position logits [B, 1, V], cache)."""
@@ -77,13 +99,13 @@ class DecodeEngine:
         total = budgets + max_extra_tokens
         T = int(total.max())
         logits, cache = self.prefill(prompts)
-        generator = None
-        if self.temperature > 0.0:
-            generator = torch.Generator(device=self.device).manual_seed(seed)
+        generator = self._generator
+        if generator is not None:
+            generator.manual_seed(seed)
         token = sample(logits, generator, self.temperature)
         if use_scan:
             out_tokens, n_gen = self._generate_chunks(
-                token, cache, total, budgets, eos_token, generator, T, chunk)
+                token, cache, total, budgets, eos_token, T, chunk)
         else:
             out_tokens, n_gen = self._generate_loop(
                 token, cache, total, budgets, eos_token, generator, T)
@@ -97,41 +119,82 @@ class DecodeEngine:
         out = decode_step(self.cfg, self.params, token, cache)
         return sample(out.logits, generator, self.temperature), out.cache
 
-    def _generate_chunks(self, token, cache, total, budgets, eos_token,
-                         generator, T, chunk):
-        """Device-resident generation: one host read per chunk."""
+    def _prepare(self, token, cache, total, budgets, eos_token,
+                 chunk: int):
+        """The static buffers of the ``(B, chunk)`` step, loaded with this
+        call's first token, cache and budgets (host-to-device copies, all
+        before any replay), and the step over them. The first call for a
+        shape adopts its prefill cache as the static one."""
         B = token.shape[0]
-        dev = self.device
-        alive = torch.ones(B, dtype=torch.bool, device=dev)
-        n_gen = torch.zeros(B, dtype=torch.int32, device=dev)
-        total_d = torch.as_tensor(total, device=dev)
-        budgets_d = torch.as_tensor(budgets, device=dev)
+        key = (B, chunk)
+        st = self._static.get(key)
+        if st is None:
+            dev = self.device
+            st = self._static[key] = {
+                "token": torch.empty_like(token), "cache": cache,
+                "alive": torch.empty(B, dtype=torch.bool, device=dev),
+                "n_gen": torch.empty(B, dtype=torch.int32, device=dev),
+                "total": torch.empty(B, dtype=torch.int32, device=dev),
+                "budgets": torch.empty(B, dtype=torch.int32, device=dev),
+                "eos": torch.empty((), dtype=torch.long, device=dev),
+                "out": torch.empty((B, chunk), dtype=torch.long,
+                                   device=dev),
+                "idx": torch.empty((), dtype=torch.long, device=dev)}
+        else:
+            _copy_tree(st["cache"], cache)
+        st["token"].copy_(token)
+        st["alive"].fill_(True)
+        st["n_gen"].zero_()
+        st["total"].copy_(torch.from_numpy(total.astype(np.int32)))
+        st["budgets"].copy_(torch.from_numpy(budgets))
+        st["eos"].fill_(_NO_EOS if eos_token is None else eos_token)
+        st["idx"].zero_()
+
+        def step():
+            """Emit the current token (masked for finished rows), update
+            the counts and masks, decode the next token: the body of the
+            JAX package's scan, in place on the static buffers."""
+            tok = st["token"][:, 0]
+            alive = st["alive"]
+            st["out"].index_copy_(
+                1, st["idx"].reshape(1),
+                torch.where(alive, tok, torch.zeros_like(tok))[:, None])
+            st["n_gen"].add_(alive.to(torch.int32))
+            done = (st["n_gen"] >= st["total"]) | (
+                (st["n_gen"] > st["budgets"]) & (tok == st["eos"]))
+            alive.logical_and_(~done)
+            out = decode_step(self.cfg, self.params, st["token"], st["cache"])
+            st["token"].copy_(sample(out.logits, self._generator,
+                                     self.temperature))
+            st["idx"].add_(1).remainder_(chunk)
+        return key, st, step
+
+    def _generate_chunks(self, token, cache, total, budgets, eos_token,
+                         T, chunk):
+        """Replayed generation: ``chunk`` replays of the captured step,
+        then one host read per chunk."""
+        key, st, step = self._prepare(token, cache, total, budgets,
+                                      eos_token, chunk)
         pieces = []
         emitted = 0
+        n_gen = np.zeros(token.shape[0], dtype=np.int32)
         while emitted < T:
-            toks = []
             for _ in range(chunk):
-                toks.append(torch.where(alive, token[:, 0],
-                                        torch.zeros_like(token[:, 0])))
-                n_gen = n_gen + alive.to(torch.int32)
-                done = n_gen >= total_d
-                if eos_token is not None:
-                    done = done | ((n_gen > budgets_d)
-                                   & (token[:, 0] == eos_token))
-                alive = alive & ~done
-                token, cache = self._step(token, cache, generator)
-            # the chunk's tokens and the alive mask in one device->host copy
-            host = torch.cat([torch.stack(toks, dim=1),
-                              alive[:, None].to(toks[0].dtype)],
-                             dim=1).cpu().numpy()
+                self._graphs.run(key, step)
+            # the chunk's tokens, the alive mask and the counts in one
+            # device->host copy
+            host = graph_hooks.to_host(torch.cat(
+                [st["out"], st["alive"][:, None].long(),
+                 st["n_gen"][:, None].long()], dim=1), "engine.chunk")
             pieces.append(host[:, :chunk])
+            n_gen = host[:, chunk + 1].astype(np.int32)
             emitted += chunk
             if not host[:, chunk].any():
                 break
         out = np.concatenate(pieces, axis=1)
         if out.shape[1] < T:
             out = np.pad(out, ((0, 0), (0, T - out.shape[1])))
-        return out[:, :T].astype(np.int32), n_gen.cpu().numpy()
+        return out[:, :T].astype(np.int32), n_gen
 
     def _generate_loop(self, token, cache, total, budgets, eos_token,
                        generator, T):
@@ -152,3 +215,16 @@ class DecodeEngine:
                 break
             token, cache = self._step(token, cache, generator)
         return out_tokens, n_gen
+
+
+def _copy_tree(dst, src) -> None:
+    """Copy every tensor leaf of a decode cache (a dict of cache tuples)
+    into the same leaf of ``dst``, in place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_tree(dst[k], src[k])
+    elif isinstance(dst, tuple):
+        for d, s in zip(dst, src):
+            _copy_tree(d, s)
+    elif isinstance(dst, torch.Tensor):
+        dst.copy_(src)

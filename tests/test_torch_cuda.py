@@ -25,7 +25,11 @@ no host sync, and one CUDA-graph capture replayed. The scan cases cover
 both routes at decays down to -3000 a token (RWKV6) and -50 (SSD), widths
 16-64 (and 20, off the 16-byte grid), S from 1 to 200, B = 2 with the
 model's strides, each slice width forced, and the same determinism, sync
-and graph checks.
+and graph checks. The decode step as a CUDA graph: on both engines and
+every family in bf16, the replayed chunk equals the same step run
+eagerly bit for bit (tokens and cache), replays make no host sync, one
+capture serves every budget, ``LAUNCHES`` counts the replayed kernels,
+and seeded stochastic decoding is reproducible through the graph.
 """
 import dataclasses
 
@@ -785,3 +789,185 @@ def test_prefill_kernels_replay_in_a_cuda_graph(cuda_device):
         torch.cuda.synchronize()
         for got, want in zip(outs, eager):
             assert _equal(got, want)
+
+
+# ---- the decode step as a CUDA graph: both engines, every family
+def _bf16_model(dev, arch):
+    """Reduced ``arch`` in bf16 on the card (the hybrid at 5 layers with the
+    shared block every 2), random weights from seed 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, reduced
+
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="bfloat16")
+    if arch == "zamba2-7b":
+        cfg = dataclasses.replace(cfg, n_layers=5, attn_every=2)
+    return cfg, init_params(cfg, 0, dev)
+
+
+GRAPH_REQUESTS = [(i, (torch.arange(3 + 5 * i) * (i + 1)).numpy() % 89 + 2,
+                   b, 3) for i, b in enumerate([5, 0, 17, 9, 2, 12])]
+
+
+def _drain(eng):
+    pending, done = list(GRAPH_REQUESTS), {}
+    while pending or eng.n_active:
+        if pending:
+            flags = eng.admit_many(pending)
+            pending = [r for r, ok in zip(pending, flags) if not ok]
+        for s in eng.step_chunk():
+            done[s.rid] = s.tokens
+    return done
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, tuple):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def _eager(eng):
+    """The same engine with its step run eagerly: a cache whose device
+    says CPU captures nothing and runs the step each time."""
+    from repro_torch.obs import graph_hooks
+    eng._graphs = graph_hooks.GraphCache("eager", "cpu")
+    return eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["qwen3-0.6b", "qwen3-0.6b-slot",
+                                  "qwen3-0.6b-paged", "rwkv6-1.6b",
+                                  "zamba2-7b"])
+def test_graph_chunk_equals_eager_chunk(cuda_device, case):
+    """The replayed chunk equals the same static-buffer step run eagerly,
+    bit for bit: the tokens and every cache leaf, in bf16. ``-slot`` and
+    ``-paged`` are the continuous engine; the rest ``DecodeEngine``."""
+    import numpy as np
+
+    from repro_torch.obs import graph_hooks
+    from repro_torch.serving import ContinuousBatchingEngine, DecodeEngine
+
+    arch = case.rsplit("-", 1)[0] if case.endswith(("slot", "paged")) \
+        else case
+    cfg, params = _bf16_model(cuda_device, arch)
+    graph_hooks.reset()
+    runs = []
+    for make in (lambda e: e, _eager):
+        if case.endswith(("slot", "paged")):
+            eng = make(ContinuousBatchingEngine(
+                cfg, params, max_slots=3, capacity=64, chunk=4,
+                paged=case.endswith("paged"), block_size=8, n_blocks=12))
+            runs.append((_drain(eng), _leaves(eng.cache)))
+        else:
+            eng = make(DecodeEngine(cfg, params, cache_capacity=64, chunk=4))
+            prompts = np.arange(27, dtype=np.int32).reshape(3, 9) % 89 + 2
+            out = eng.generate(prompts, [7, 0, 17], max_extra_tokens=3)
+            runs.append((out["tokens"].tolist(),
+                         _leaves(eng._static[(3, 4)]["cache"])))
+    (got, got_cache), (want, want_cache) = runs
+    assert got == want
+    assert all(torch.equal(a, b) for a, b in zip(got_cache, want_cache))
+    label = (f"continuous.{case.rsplit('-', 1)[1]}"
+             if case.endswith(("slot", "paged")) else "engine.chunk")
+    assert graph_hooks.capture_counts()[label] == 1
+
+
+@pytest.mark.cuda
+def test_graph_replay_makes_no_host_sync(cuda_device):
+    """The step's eager run and its replays read nothing on the host."""
+    import numpy as np
+
+    from repro_torch.serving import DecodeEngine
+
+    cfg, params = _bf16_model(cuda_device, "qwen3-0.6b")
+    eng = DecodeEngine(cfg, params, cache_capacity=64, chunk=4)
+    logits, cache = eng.prefill(np.ones((2, 9), np.int32))
+    key, _, step = eng._prepare(logits.argmax(-1), cache,
+                                np.array([20, 20], np.int32),
+                                np.array([17, 17], np.int32), None, 4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()                                 # the step, eagerly
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng._graphs.run(key, step)                 # warm-up, then the capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(6):
+            eng._graphs.run(key, step)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_one_capture_across_budgets_on_card(cuda_device):
+    import numpy as np
+
+    from repro_torch.obs import graph_hooks
+    from repro_torch.serving import DecodeEngine
+
+    cfg, params = _bf16_model(cuda_device, "qwen3-0.6b")
+    graph_hooks.reset()
+    eng = DecodeEngine(cfg, params, cache_capacity=64, chunk=4)
+    chunks = 0
+    for S, budgets in ((8, [3, 7]), (8, [5, 2]), (12, [8, 8]), (5, [1, 6])):
+        out = eng.generate(np.ones((2, S), np.int32), budgets,
+                           max_extra_tokens=0)
+        assert out["n_reasoning"].tolist() == budgets
+        chunks += -(-max(budgets) // 4)
+    assert graph_hooks.assert_max_captures("engine.chunk", 1) == 1
+    assert graph_hooks.transfer_counts()["engine.chunk"] == chunks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_launches_count_replayed_kernels(cuda_device, paged):
+    """A capture takes back the launches it recorded and each replay adds
+    them again: after n replays LAUNCHES is the capture's delta times n,
+    which is one decode step's kernels (slot or paged decode and the FFN,
+    once a layer)."""
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    cfg, params = _bf16_model(cuda_device, "qwen3-0.6b")
+    eng = ContinuousBatchingEngine(cfg, params, max_slots=3, capacity=64,
+                                   chunk=4, paged=paged, block_size=8)
+    assert eng.admit(0, GRAPH_REQUESTS[3][1], 40, 0)
+    eng._inputs[0, 0] = eng.slots[0].last_token
+    step = eng._chunk_step(4)
+    reset_launches()
+    eng._graphs.run(4, step)                   # warm-up (eager) + capture
+    decode = "paged_decode_attention" if paged else "decode_attention"
+    one_step = {decode: cfg.n_layers, "fused_ffn": cfg.n_layers}
+    assert dict(LAUNCHES) == one_step          # the eager warm-up only
+    assert dict(eng._graphs.launches(4)) == one_step
+    reset_launches()
+    for _ in range(5):
+        eng._graphs.run(4, step)
+    assert dict(LAUNCHES) == {k: 5 * v for k, v in one_step.items()}
+
+
+@pytest.mark.cuda
+def test_seeded_stochastic_decode_is_reproducible(cuda_device):
+    """The engine's generator is registered with its graph: two engines
+    with one seed draw the same tokens, another seed others, and the
+    replayed chunk path draws what the eager per-token loop draws."""
+    import numpy as np
+
+    from repro_torch.serving import DecodeEngine
+
+    cfg, params = _bf16_model(cuda_device, "qwen3-0.6b")
+    prompts = np.arange(18, dtype=np.int32).reshape(2, 9) % 89 + 2
+    kw = dict(cache_capacity=64, chunk=4, temperature=0.8)
+    runs = [DecodeEngine(cfg, params, **kw).generate(
+        prompts, [13, 9], max_extra_tokens=0, seed=s)["tokens"]
+        for s in (3, 3, 4)]
+    loop = DecodeEngine(cfg, params, **kw).generate(
+        prompts, [13, 9], max_extra_tokens=0, seed=3,
+        use_scan=False)["tokens"]
+    np.testing.assert_array_equal(runs[0], runs[1])
+    assert not np.array_equal(runs[0], runs[2])
+    np.testing.assert_array_equal(runs[0], loop)
