@@ -55,7 +55,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    PIN_BUDGET, through the eager per-token loop and the graph: greedy
    tokens equal, tokens/s of each) and a profiled stretch of decode steps,
    eager and replayed: host wall time per step against the device time of
-   its kernels;
+   its kernels; then the same serve on an int8 KV cache (exact budgets,
+   one capture, slot decode once a layer a replayed step, graph tokens
+   equal to the eager loop's), with the cache's bytes against the bf16
+   cache's and the dequantise's device time a step;
 7. continuous serve: the same stream through LLMServer(batch_size=8) with
    ContinuousBatchingEngine(paged=True, max_slots=8, capacity=2048,
    block_size=16, chunk=16), whose chunks replay its captured step: exact
@@ -75,7 +78,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
    argmax on random weights can flip on a summation order (other groups
    prefill at other padded shapes); phase 5 is the check. Then one
    profiled chunk of decode at 8 live slots in paged and slot mode,
-   replayed and eager;
+   replayed and eager. The int8 drain: the paged drain and the slot drain
+   on its groups again on an int8 cache, both launching slot decode and
+   never paged decode, tokens equal (asserted: both attend over the same
+   dequantised values through the same kernel). The hooks serve:
+   LLMServer(batch_size=8) over the paged engine (64 blocks) with the
+   admission ladder, PoolPressure, StragglerDecode, a Tracer and a
+   MetricsRegistry, on 48 queries at 2x the deployed budgets' service
+   rate: every completed request's span tree validated, requests shed
+   (zero tokens), exact budgets within their caps and some degraded, the
+   pool's audit and a balanced allocator, one capture across the
+   ladder's budgets; the metrics' wait and system-time percentiles, the
+   degradation occupancy and the engine's wall spans printed; the same
+   run without tracer and metrics and without any hook, for their cost;
 9. step latency points: a paged engine of b slots, all live, for b = 1,
    2, 4, 8: the replayed step's host time (for fit_step_latency);
 10. rwkv6 model and serve: full-width rwkv6-1.6b, phase 4 in f32
@@ -103,7 +118,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    numbers and gate nothing on speed.
 
 The line before the last is the kernels' JSON summary (with each kernel's
-launches on every serve path that ran it); the last line is
+launches on every serve path that ran it, the int8 serve, the int8 paged
+drain and the hooks serve among them); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -184,6 +200,7 @@ Q8_H, Q8_G, Q8_D, Q8_DFF = 8, 4, 4096, 12288
 QWEN3_8B_F32_LAYERS = 4   # depth of qwen3-8b's f32 check (f32 weights + ref)
 PIN_BUDGET = 64           # budget cap of the eager-vs-graph pin's requests
 OCCUPANCIES = (1, 2, 4, 8)  # continuous engines timed for fit_step_latency
+HOOKS_QUERIES = 48        # the hooks serve's stream, at 2x the service rate
 
 
 
@@ -811,12 +828,15 @@ def paged_model_phase(dev, cfg, params) -> dict:
     depth) on the paged path: two ragged prompts admitted by a paged
     engine (batched prefill, insert into the pool), then 8 paged decode
     steps, kernels against force_ref, teacher-forced on the reference's
-    greedy tokens."""
+    greedy tokens. A full-precision pool must launch the paged decode
+    kernel once a layer a step; an int8 pool (gathered and dequantised)
+    the slot decode kernel, and never the paged one."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import decode_step
     from repro_torch.serving import ContinuousBatchingEngine
 
     steps = 8
+    int8 = cfg.kv_cache_dtype == "int8"
     eng = ContinuousBatchingEngine(cfg, params, max_slots=2, capacity=256,
                                    paged=True, block_size=16, n_blocks=32)
     prompts = [np.arange(37) % 97 + 1, np.arange(20) % 89 + 3]
@@ -829,8 +849,9 @@ def paged_model_phase(dev, cfg, params) -> dict:
     eng._ensure_blocks(steps)
     eng._sync_tables()
     ck = eng.cache["layers"]
-    cr = ck._replace(k=ck.k.clone(), v=ck.v.clone(),
-                     length=ck.length.clone())    # advanced in place
+    cr = ck._replace(**{f: getattr(ck, f).clone()      # advanced in place
+                        for f in ("k", "v", "k_scale", "v_scale", "length")
+                        if getattr(ck, f) is not None})
     tok = torch.tensor([[s.last_token] for s in eng.slots], device=dev)
     err = scale = 0.0
     agree, tokens = True, []
@@ -844,20 +865,69 @@ def paged_model_phase(dev, cfg, params) -> dict:
         agree &= bool(torch.equal(k.logits[:, -1:].argmax(-1), tok))
         tokens.append(tok[:, 0].tolist())
         cr, ck = r.cache["layers"], k.cache["layers"]
-    launches = LAUNCHES["paged_decode_attention"]
+    decode = "decode_attention" if int8 else "paged_decode_attention"
+    other = "paged_decode_attention" if int8 else "decode_attention"
+    launches = LAUNCHES[decode]
     out = {"phase": "paged_model", "arch": cfg.arch_id,
            "n_layers": cfg.n_layers, "dtype": "float32",
+           "kv_cache_dtype": cfg.kv_cache_dtype,
            "prompt_lens": [len(p) for p in prompts], "block_size": 16,
            "block_tables": ck.block_tables[:, :4].tolist(),
            "decode_steps": steps, "logits_max_abs_err": err,
            "logits_max_abs": scale, "tol": LOGIT_TOL,
            "tol_reason": LOGIT_REASON, "greedy_tokens_agree": agree,
-           "greedy_tokens": tokens, "paged_launches": launches}
+           "greedy_tokens": tokens, "decode_kernel": decode,
+           "decode_launches": launches, "other_launches": LAUNCHES[other]}
     print(json.dumps(out))
     check(err <= LOGIT_TOL, f"paged model logits err {err} > {LOGIT_TOL}")
     check(launches == steps * cfg.n_layers,
-          f"paged_decode_attention launched {launches} times in {steps} "
-          f"steps of {cfg.n_layers} layers")
+          f"{decode} launched {launches} times in {steps} steps of "
+          f"{cfg.n_layers} layers")
+    check(LAUNCHES[other] == 0, f"{other} launched on the paged model")
+    return out
+
+
+def int8_model_phase(dev, cfg32, params) -> dict:
+    """The full-width f32 model with an int8 KV cache: on the slot cache,
+    prefill plus 8 decode steps through the kernels against force_ref
+    (logits within LOGIT_TOL, greedy tokens equal, the slot decode kernel
+    once a layer a step), the int8 cache's logit gap from the
+    full-precision cache on the same kernel path and tokens; then the
+    paged pool (paged_model_phase)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    cfg8 = dataclasses.replace(cfg32, kv_cache_dtype="int8")
+    prompt = torch.as_tensor(np.arange(37) % 97 + 1, device=dev)[None]
+    ref, toks = _greedy_run(cfg8, params, prompt, True)
+    reset_launches()
+    ker, _ = _greedy_run(cfg8, params, prompt, False, teacher=toks)
+    launches = dict(LAUNCHES)
+    full, _ = _greedy_run(cfg32, params, prompt, False, teacher=toks)
+    err = _max_err(ref, ker)
+    agree = all(torch.equal(a[:, -1:].argmax(-1), b[:, -1:].argmax(-1))
+                for a, b in zip(ref, ker))
+    # decode steps only: the prefill's logits do not read the cache
+    gap = _max_err(ker[1:], full[1:])
+    out = {"phase": "int8_model", "arch": cfg8.arch_id,
+           "n_layers": cfg8.n_layers, "dtype": "float32",
+           "kv_cache_dtype": "int8", "prompt_len": 37, "decode_steps": 8,
+           "logits_max_abs_err": err,
+           "logits_max_abs": max(float(x.abs().max()) for x in ref),
+           "tol": LOGIT_TOL, "tol_reason": LOGIT_REASON,
+           "greedy_tokens_agree": agree,
+           "int8_vs_full_cache_logits_max_abs_gap": gap,
+           "int8_vs_full_cache_greedy_agree": all(
+               torch.equal(a[:, -1:].argmax(-1), b[:, -1:].argmax(-1))
+               for a, b in zip(ker, full)),
+           "launches": launches}
+    print(json.dumps(out))
+    check(agree, "int8 model: greedy tokens differ")
+    check(err <= LOGIT_TOL, f"int8 model logits err {err} > {LOGIT_TOL}")
+    check(launches.get("decode_attention", 0) == 8 * cfg8.n_layers,
+          f"int8 model: decode_attention launched "
+          f"{launches.get('decode_attention', 0)} times in 8 steps")
+    check(np.isfinite(gap), "int8 model: non-finite logits")
+    out["paged"] = paged_model_phase(dev, cfg8, params)
     return out
 
 
@@ -890,7 +960,7 @@ def decode_launches_expected(cfg, steps: int) -> dict:
 
 
 def serve_phase(dev, arch: str, kernels: tuple, mode: str = "virtual",
-                n_layers=None) -> dict:
+                n_layers=None, kv_cache_dtype: str = "model") -> dict:
     """The main path of ``arch`` at full width in bf16: allocator ->
     scheduler -> LLMServer -> DecodeEngine, whose chunks replay the
     captured decode step. Each of ``kernels`` must be launched on it, the
@@ -899,7 +969,9 @@ def serve_phase(dev, arch: str, kernels: tuple, mode: str = "virtual",
     replayed step. Then the eager-vs-graph pin: the first two requests
     (budgets capped at PIN_BUDGET) through the eager per-token loop and
     the graph path, tokens equal. ``mode="wall"`` times each request on
-    the host clock (the calibration's points)."""
+    the host clock (the calibration's points). ``kv_cache_dtype="int8"``
+    serves on the int8 cache and adds its KV bytes against the
+    full-precision cache's and the dequantise's device time a step."""
     from repro_torch.configs import get_config
     from repro_torch.core import paper_problem
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -908,7 +980,8 @@ def serve_phase(dev, arch: str, kernels: tuple, mode: str = "virtual",
     from repro_torch.queueing_sim import generate_stream
     from repro_torch.serving import DecodeEngine, LLMServer, ServerConfig
 
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch),
+                              kv_cache_dtype=kv_cache_dtype)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     params = init_params(cfg, seed=0, device=dev)
@@ -960,6 +1033,7 @@ def serve_phase(dev, arch: str, kernels: tuple, mode: str = "virtual",
     decode_s = timers["generate_s"] - timers["prefill_s"]
     out = {"phase": "serve", "arch": cfg.arch_id, "n_layers": cfg.n_layers,
            "dtype": cfg.dtype, "mode": mode,
+           "kv_cache_dtype": cfg.kv_cache_dtype,
            "report": dataclasses.asdict(rep),
            "budgets_enforced_exactly": True,
            "wall_s": wall, "prefill_s": timers["prefill_s"],
@@ -980,9 +1054,46 @@ def serve_phase(dev, arch: str, kernels: tuple, mode: str = "virtual",
               f"{arch} serve: {name} launched {launches.get(name, 0)} "
               f"times in {graph['steps']} replayed steps, expected {n}")
     engine.prefill, engine.generate = prefill, generate
+    if cfg.kv_cache_dtype == "int8":
+        out["kv_cache"] = int8_cache_cost(engine)
     out["pin"] = eager_graph_pin(engine, stream, srv.completed)
-    print(json.dumps({**decode_step_breakdown(engine), "arch": arch}))
+    print(json.dumps({**decode_step_breakdown(engine), "arch": arch,
+                      "kv_cache_dtype": cfg.kv_cache_dtype}))
     out["completed"] = [(c.n_tokens, c.service_time) for c in srv.completed]
+    return out
+
+
+def int8_cache_cost(engine) -> dict:
+    """The int8 serve's static cache: its bytes (codes and scales) against
+    a full-precision cache of the same shape in the model's dtype, and the
+    device time a decode step spends dequantising it (each layer's K and V
+    of the whole 2048-slot cache, as the step does), profiled."""
+    from repro_torch.models.attention import _dequantize
+
+    (key, st), = engine._static.items()
+    kv = st["cache"]["layers"]
+    int8_bytes = sum(t.nbytes for t in (kv.k, kv.v, kv.k_scale, kv.v_scale))
+    dtype = engine.cfg.tdtype
+    full_bytes = 2 * kv.k.numel() * torch.empty((), dtype=dtype).element_size()
+    L = kv.k.shape[0]
+
+    def dequant():
+        for i in range(L):
+            _dequantize(kv.k[i], kv.k_scale[i], dtype)
+            _dequantize(kv.v[i], kv.v_scale[i], dtype)
+    for _ in range(2):
+        dequant()
+    prof = profile_steps(dequant, 4, 4)
+    out = {"phase": "int8_kv_cache", "arch": engine.cfg.arch_id,
+           "static_key": list(key), "shape": list(kv.k.shape),
+           "int8_bytes": int8_bytes, "model_dtype_bytes": full_bytes,
+           "bytes_ratio": int8_bytes / full_bytes,
+           "dequantise_device_ms_per_step": prof["device_ms_per_step"],
+           "dequantise_wall_ms_per_step": prof["wall_ms_per_step"]}
+    print(json.dumps(out))
+    hd, el = kv.k.shape[-1], torch.empty((), dtype=dtype).element_size()
+    check(out["bytes_ratio"] == (hd + 4) / (hd * el),
+          f"int8 cache bytes {out}")
     return out
 
 
@@ -1142,31 +1253,41 @@ def continuous_serve_phase(dev, cfg, params) -> dict:
     return out
 
 
-def rolling_drain_phase(dev, cfg, params, served, n_blocks: int = 64) -> dict:
+def rolling_drain_phase(dev, cfg, params, served, n_blocks: int = 64,
+                        int8: bool = False) -> dict:
     """All 8 requests offered at once to a paged engine whose pool holds
     fewer tokens than they need (back-pressure); the same drain in slot
     mode, which admits them all at once; and the slot drain again, offered
     the paged drain's admission groups at the paged drain's chunks, so the
     two modes differ only in their attention kernel. Each drain's kernel
     launches are counted. Then a profiled chunk at 8 live slots in paged
-    and slot mode."""
+    and slot mode. ``int8=True``: both on an int8 KV cache, the paged
+    drain and the slot drain on its groups only, each launching the slot
+    decode kernel and never the paged one, their tokens equal (an int8
+    pool is gathered and dequantised, so the two modes attend over the
+    same values through the same kernel); no profiled chunk."""
     import math
 
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.obs import graph_hooks
     from repro_torch.serving import ContinuousBatchingEngine
 
+    if int8:
+        cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
     budgets = served["budgets"]
     reqs = [(q.qid, np.arange(q.prompt_len) % 97 + 1, budgets[q.qid], 8)
             for q in served["stream"].queries]
     need = [r[1].size + r[2] + r[3] - 1 for r in reqs]
     out = {"phase": "rolling_drain", "arch": cfg.arch_id,
-           "n_layers": cfg.n_layers, "requests": len(reqs),
+           "n_layers": cfg.n_layers, "kv_cache_dtype": cfg.kv_cache_dtype,
+           "requests": len(reqs),
            "tokens_needed": sum(need),
            "blocks_needed": sum(math.ceil(n / 16) for n in need),
            "pool_blocks": n_blocks, "pool_tokens": n_blocks * 16}
     tokens, groups = {}, {}          # groups: chunk -> rids admitted there
-    for mode in ("paged", "slot", "slot_paged_groups"):
+    modes = (("paged", "slot_paged_groups") if int8
+             else ("paged", "slot", "slot_paged_groups"))
+    for mode in modes:
         paged = mode == "paged"
         eng = ContinuousBatchingEngine(
             cfg, params, max_slots=8, capacity=2048, chunk=16, paged=paged,
@@ -1204,8 +1325,10 @@ def rolling_drain_phase(dev, cfg, params, served, n_blocks: int = 64) -> dict:
             check(len(done[rid]) == budget + extra,
                   f"{mode} drain: request {rid} got {len(done[rid])} tokens "
                   f"for budget {budget} + {extra}")
-        decode = "paged_decode_attention" if paged else "decode_attention"
-        other = "decode_attention" if paged else "paged_decode_attention"
+        decode = ("paged_decode_attention" if paged and not int8
+                  else "decode_attention")
+        other = ("decode_attention" if decode == "paged_decode_attention"
+                 else "paged_decode_attention")
         for name in ("flash_attention", "fused_ffn", decode):
             check(launches.get(name, 0) > 0,
                   f"{name} was launched 0 times in the {mode} drain")
@@ -1232,7 +1355,7 @@ def rolling_drain_phase(dev, cfg, params, served, n_blocks: int = 64) -> dict:
                   "free list not restored after the drain")
             row["free_list_restored"] = True
             row["admission_groups"] = {str(c): g for c, g in groups.items()}
-        if mode != "slot_paged_groups":
+        if mode != "slot_paged_groups" and not int8:
             # one profiled chunk of 16 steps at 8 live slots, positions ~100
             # (8 requests of 96 + 31 tokens fill the 64-block pool exactly),
             # replayed; then with the step run eagerly (a cache whose device
@@ -1254,13 +1377,171 @@ def rolling_drain_phase(dev, cfg, params, served, n_blocks: int = 64) -> dict:
 
     def agreeing(a, b):
         return sum(tokens[a][rid] == tokens[b][rid] for rid in tokens[a])
-    # reported, not asserted: see the module docstring
-    out["requests_agreeing"] = agreeing("paged", "slot")
     out["requests_agreeing_same_groups"] = agreeing("paged",
                                                     "slot_paged_groups")
+    if int8:
+        print(json.dumps(out))
+        check(out["requests_agreeing_same_groups"] == len(reqs),
+              "int8 drain: paged tokens differ from the slot drain's on the "
+              "same admission groups")
+        return out
+    # reported, not asserted: see the module docstring
+    out["requests_agreeing"] = agreeing("paged", "slot")
     out["bf16_tokens_agree_paged_vs_slot"] = (
         out["requests_agreeing"] == len(reqs))
     print(json.dumps(out))
+    return out
+
+
+def _hooked_run(engine, prob, stream, obs: bool, hooks: bool = True):
+    """One run of ``stream`` through LLMServer(batch_size=8) on ``engine``,
+    virtual clock, real tokens. With ``hooks``: an admission ladder on the
+    deployed budgets (an allocator whose rate estimate follows the stream
+    within a few arrivals and never re-solves, so the ladder, not the
+    re-solver, answers the overload), PoolPressure and StragglerDecode;
+    with ``obs`` also a Tracer (the engine's too) and a MetricsRegistry.
+    Every hook object is made anew from its seed, so runs repeat."""
+    from repro_torch import faults
+    from repro_torch.core import TokenBudgetAllocator
+    from repro_torch.obs import MetricsRegistry, Tracer
+    from repro_torch.serving import (AdmissionConfig, AdmissionController,
+                                     LLMServer, ServerConfig)
+
+    alloc = TokenBudgetAllocator(prob, ewma_halflife=2.0,
+                                 min_resolve_interval=10 ** 9)
+    kw = {"allocator": alloc}
+    if hooks:
+        kw["admission"] = AdmissionController(
+            alloc.solution.lengths_int, prob.server.l_max,
+            AdmissionConfig(n_levels=3, rho_high=0.9, rho_low=0.7,
+                            dwell_down=1e9))
+        kw["faults"] = faults.FaultSet(
+            faults.PoolPressure(0.3, hold_steps=4, period_steps=8, seed=8),
+            faults.StragglerDecode(0.25, 3.0, seed=4))
+    if obs:
+        kw["tracer"], kw["metrics"] = Tracer(), MetricsRegistry()
+    engine.tracer = kw.get("tracer")
+    engine.faults = None                 # the server hands its own over
+    srv = LLMServer(prob, ServerConfig(generate_tokens=True, batch_size=8),
+                    engine=engine, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = srv.run(stream)
+    torch.cuda.synchronize()
+    return srv, rep, time.perf_counter() - t0
+
+
+def hooks_serve_phase(dev, cfg, params) -> dict:
+    """The server's hooks on the card: LLMServer(batch_size=8) over the
+    paged continuous engine (64 blocks, as the drains), virtual clock,
+    real tokens, with the admission ladder, PoolPressure and
+    StragglerDecode, a Tracer and a MetricsRegistry, on HOOKS_QUERIES
+    queries of generate_stream at 2x the service rate of the deployed
+    budgets (reference tests/test_faults.py's overload). Checks: every
+    completed request's span tree, sheds (zero tokens), exact budgets
+    within the level-0 caps and some degraded, the pool's audit and a
+    balanced allocator after release, one capture across the ladder's
+    budget changes. Then the same run without the tracer and metrics
+    (the same decisions and tokens) and without any hook (full budgets,
+    other work), one after the other, for the hooks' cost."""
+    from repro_torch.core import paper_problem, solve
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.obs import graph_hooks, validate_request_trees
+    from repro_torch.queueing_sim import generate_stream
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    prob = paper_problem(lam=0.1, alpha=30.0)
+    tasks = prob.tasks
+    deployed = solve(prob).lengths_int.astype(np.float64)
+    es = float((tasks.pi.numpy() * (tasks.t0.numpy()
+                                    + tasks.c.numpy() * deployed)).sum())
+    stream = generate_stream(tasks, 2.0 / es, HOOKS_QUERIES, seed=0)
+    engine = ContinuousBatchingEngine(cfg, params, max_slots=8,
+                                      capacity=2048, chunk=16, paged=True,
+                                      block_size=16, n_blocks=64)
+    graph_hooks.reset()
+    reset_launches()
+    srv, rep, wall = _hooked_run(engine, prob, stream, obs=True)
+    launches = dict(LAUNCHES)
+    graph = graph_stats("continuous.paged", engine.chunk)
+    trace = srv.tracer.to_chrome()
+    extra = srv.cfg.max_extra_tokens
+    ladder = srv.admission.ladder()
+    for c in srv.completed:
+        check(c.n_tokens == c.budget + extra,
+              f"hooks serve: request {c.rid}: {c.n_tokens} tokens for "
+              f"budget {c.budget} + {extra}")
+        check(c.budget <= ladder[0, c.task_index],
+              f"hooks serve: request {c.rid} budget {c.budget} over its cap")
+    check(all(c.n_tokens == 0 and c.service_time == 0.0 for c in srv.shed),
+          "hooks serve: a shed request has tokens or service")
+    trees = validate_request_trees(trace, [c.rid for c in srv.completed])
+    check(engine.check_block_invariants(), "hooks serve: block invariants")
+    srv.faults.release_all(engine)
+    check(engine.allocator.n_free == engine.allocator.n_blocks
+          and engine.allocator.reserved == 0,
+          "hooks serve: allocator not balanced after release")
+    degraded = sum(c.budget < ladder[0, c.task_index]
+                   for c in srv.completed)
+
+    def spans(name):
+        ms = [ev["dur"] / 1e3 for ev in trace["traceEvents"]
+              if ev.get("name") == name and ev["ph"] == "X"]
+        return {"n": len(ms), "total_ms": float(np.sum(ms)),
+                "mean_ms": float(np.mean(ms)) if ms else 0.0,
+                "p50_ms": float(np.median(ms)) if ms else 0.0,
+                "max_ms": float(np.max(ms)) if ms else 0.0}
+    snap = srv.metrics.as_dict()
+    tokens = [(c.rid, c.n_tokens) for c in srv.completed]
+    runs = {"hooks_and_obs": wall}
+    for name, obs, hooks in (("hooks_no_obs", False, True),
+                             ("hooks_and_obs_again", True, True),
+                             ("hooks_no_obs_again", False, True),
+                             ("no_hooks", False, False)):
+        s2, r2, w2 = _hooked_run(engine, prob, stream, obs=obs, hooks=hooks)
+        runs[name] = w2
+        if hooks:
+            check([(c.rid, c.n_tokens) for c in s2.completed] == tokens
+                  and r2.n_shed == rep.n_shed,
+                  f"hooks serve: run {name} decided otherwise")
+            s2.faults.release_all(engine)
+        else:
+            runs["no_hooks_tokens"] = r2.tokens_generated
+    out = {"phase": "hooks_serve", "arch": cfg.arch_id,
+           "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "engine": "ContinuousBatchingEngine(paged=True, max_slots=8, "
+                     "capacity=2048, block_size=16, n_blocks=64, chunk=16)",
+           "queries": HOOKS_QUERIES, "rate": 2.0 / es,
+           "anchored_mean_service_s": es,
+           "report": dataclasses.asdict(rep),
+           "admission": {k: v for k, v in srv.admission.snapshot().items()
+                         if k != "occupancy"},
+           "degraded_requests": int(degraded),
+           "shed_rids": [c.rid for c in srv.shed],
+           "trees": trees,
+           "metrics": {k: snap[k] for k in ("server.wait",
+                                            "server.system_time",
+                                            "server.tokens_in_use",
+                                            "server.batches",
+                                            "server.shed")
+                       if k in snap},
+           "wall_spans": {n: spans(n) for n in ("continuous.admit",
+                                                 "continuous.decode_chunk")},
+           "graph": graph, "launches": launches,
+           "wall_s": runs, "tokens_with_hooks": rep.tokens_generated}
+    print(json.dumps(out))
+    check(rep.n_shed > 0 and rep.n + rep.n_shed == HOOKS_QUERIES,
+          f"hooks serve: {rep.n_shed} shed of {HOOKS_QUERIES}")
+    check(degraded > 0, "hooks serve: no budget was degraded")
+    check(graph_hooks.capture_counts().get("continuous.paged", 0) == 1,
+          f"hooks serve: {graph_hooks.capture_counts()} captures across the "
+          f"ladder's budgets")
+    check(graph["host_reads_per_chunk"] == 1, f"hooks serve: {graph}")
+    check(launches.get("paged_decode_attention", 0)
+          == cfg.n_layers * graph["steps"],
+          f"hooks serve: paged decode launched "
+          f"{launches.get('paged_decode_attention', 0)} times in "
+          f"{graph['steps']} steps")
     return out
 
 
@@ -1401,17 +1682,23 @@ def main() -> int:
     cfg32, params32 = f32_model("qwen3-0.6b")
     model_phase(dev, cfg32, params32)
     paged_model_phase(dev, cfg32, params32)
+    int8_model_phase(dev, cfg32, params32)
     del params32
     free()
 
     attn_kernels = ("flash_attention", "decode_attention", "fused_ffn")
     served = serve_phase(dev, "qwen3-0.6b", attn_kernels)
     free()
+    served8 = serve_phase(dev, "qwen3-0.6b", attn_kernels,
+                          kv_cache_dtype="int8")
+    free()
     cfg = dataclasses.replace(get_config("qwen3-0.6b"),
                               n_layers=QWEN3_BATCHED_LAYERS)
     params = init_params(cfg, seed=0, device=dev)
     continuous = continuous_serve_phase(dev, cfg, params)
     rolling_drain_phase(dev, cfg, params, continuous)
+    drain8 = rolling_drain_phase(dev, cfg, params, continuous, int8=True)
+    hooks = hooks_serve_phase(dev, cfg, params)
     occupancy = step_latency_points(dev, cfg, params)
     del params
     free()
@@ -1419,7 +1706,10 @@ def main() -> int:
     # the recurrent and hybrid paths, then the paper's model: each model
     # freed before the next
     by_path = {"qwen3-0.6b serve": served["launches"],
-               "qwen3-0.6b continuous serve": continuous["launches"]}
+               "qwen3-0.6b continuous serve": continuous["launches"],
+               "qwen3-0.6b int8 serve": served8["launches"],
+               "qwen3-0.6b int8 paged drain": drain8["paged"]["launches"],
+               "qwen3-0.6b hooks serve": hooks["launches"]}
     for arch, kernels in (("rwkv6-1.6b", ("rwkv6_scan",)),
                           ("zamba2-7b", ("ssd_scan",) + attn_kernels)):
         cfg32, params32 = f32_model(arch)

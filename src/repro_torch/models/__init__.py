@@ -1,7 +1,7 @@
 """The ported model families: the dense GQA decoder, RWKV6 and the Mamba2 +
 shared-attention hybrid (the slices of ``repro.models`` the serving paths
 run)."""
-from .attention import (KVCache, PagedKVCache, init_cache,
+from .attention import (KVCache, PagedKVCache, QuantKVCache, init_cache,
                         init_paged_cache)
 from .config import ModelConfig, reduced
 from .mamba2 import MambaCache
@@ -12,5 +12,6 @@ from .transformer import (ModelOutput, decode_step, forward,
 
 __all__ = ["ModelConfig", "reduced", "init_params", "forward", "decode_step",
            "init_decode_cache", "ModelOutput", "sample", "fold_sample",
-           "KVCache", "init_cache", "PagedKVCache", "init_paged_cache",
+           "KVCache", "QuantKVCache", "init_cache", "PagedKVCache",
+           "init_paged_cache",
            "RWKVCache", "MambaCache"]

@@ -1,6 +1,6 @@
 """GQA attention: RoPE, qk-norm, prefill, slot-cache and paged decode.
 
-The full-precision paths of ``repro.models.attention``:
+The paths of ``repro.models.attention`` for full attention:
 
   * ``attn_forward``        — full-sequence causal attention (prefill);
     returns the K/V tensors so prefill can seed a decode cache.
@@ -13,9 +13,17 @@ The full-precision paths of ``repro.models.attention``:
 Attention goes through ``kernels.ops`` (the Hopper kernels on a CUDA
 device, their plain versions on the CPU) at every shape; the JAX package's
 ``% 16`` gate existed only because Pallas blocks must divide the array.
-``force_ref=True`` takes the JAX package's reference path instead. The
-int8 ``QuantKVCache`` (and int8 paged pools) and sliding-window ring
-buffers are not ported yet.
+``force_ref=True`` takes the JAX package's reference path instead.
+
+The int8 cache (``ModelConfig.kv_cache_dtype="int8"``): the slot cache is
+a :class:`QuantKVCache` and the paged pool carries ``k_scale``/``v_scale``
+pools beside its int8 codes, both quantised symmetrically by absmax per
+(position, head) (:func:`_quantize`). A decode step writes codes and
+scales in place, dequantises the layer (:func:`_dequantize`) and attends
+over it with the slot decode kernel; an int8 paged pool is gathered
+through its block table first, so it never runs the paged kernel. No
+kernel reads int8, as in the JAX package. Sliding-window ring buffers are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -51,8 +59,30 @@ class KVCache(NamedTuple):
         return self.k.shape[2]
 
 
+class QuantKVCache(NamedTuple):
+    """Layer-stacked int8 decode cache: symmetric absmax quantisation per
+    (position, head), as ``repro``'s.
+
+        k, v              int8 [L, B, C, nkv, hd]  codes in [-127, 127]
+        k_scale, v_scale  f32  [L, B, C, nkv]      absmax / 127 (>= 1e-8)
+        length            int32, as :class:`KVCache`'s
+
+    Updated in place by :func:`attn_decode_stacked`, like ``KVCache``.
+    """
+
+    k: Tensor
+    v: Tensor
+    k_scale: Tensor
+    v_scale: Tensor
+    length: Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.k.shape[2]
+
+
 class PagedKVCache(NamedTuple):
-    """Block-pooled KV cache (full precision), as ``repro``'s.
+    """Block-pooled KV cache, as ``repro``'s.
 
         k, v          [L, P + 1, bs, nkv, hd]  pool of P blocks, plus one
                                                trash block at index P
@@ -60,6 +90,10 @@ class PagedKVCache(NamedTuple):
                                                map; entry P = unassigned
         length        [B] int32                per-slot position of the next
                                                token, the same in every layer
+        k_scale,      [L, P + 1, bs, nkv] f32  absmax scales when the pool is
+        v_scale                                int8 (``kv_cache_dtype=
+                                               "int8"``), trash block
+                                               included; None otherwise
 
     Logical position ``p`` of slot ``b`` lives at
     ``pool[layer, block_tables[b, p // bs], p % bs]``. The JAX package
@@ -75,6 +109,8 @@ class PagedKVCache(NamedTuple):
     v: Tensor
     block_tables: Tensor
     length: Tensor
+    k_scale: Optional[Tensor] = None
+    v_scale: Optional[Tensor] = None
 
     @property
     def n_blocks(self) -> int:
@@ -88,6 +124,30 @@ class PagedKVCache(NamedTuple):
     def capacity(self) -> int:
         """Per-slot logical capacity (block-table width x block size)."""
         return self.block_tables.shape[1] * self.k.shape[2]
+
+
+def _quantize(t: Tensor):
+    """t [..., hd] -> (int8 codes [..., hd], f32 scale [...]): absmax over
+    ``hd`` in f32, ``scale = max(amax / 127, 1e-8)``, codes rounded half
+    to even (``torch.round``, as ``jnp.round``) and clipped to +-127."""
+    tf = t.float()
+    scale = torch.clamp(tf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(tf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequantize(q: Tensor, scale: Tensor, dtype) -> Tensor:
+    """Codes times their scales in f32, cast to the activation dtype."""
+    return (q.float() * scale[..., None].float()).to(dtype)
+
+
+def kv_fields(k: Tensor, v: Tensor, int8: bool) -> tuple:
+    """What a K/V write stores, as (cache field, values) pairs: ``k`` and
+    ``v`` themselves, or for an int8 cache their codes and their scales."""
+    if not int8:
+        return (("k", k), ("v", v))
+    (kq, ks), (vq, vs) = _quantize(k), _quantize(v)
+    return (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs))
 
 
 def init_attn(cfg: ModelConfig, gen: torch.Generator, lead: tuple) -> dict:
@@ -161,12 +221,22 @@ def attn_forward(cfg: ModelConfig, p: dict, x: Tensor,
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
-               device, dtype=None, n_layers: Optional[int] = None) -> KVCache:
+               device, dtype=None, n_layers: Optional[int] = None):
     """Zeroed layer-stacked dense cache at position 0, with ``n_layers``
     layers (default ``cfg.n_layers``; the hybrid's shared block has one per
-    application)."""
+    application): a :class:`QuantKVCache` when the config's KV cache is
+    int8 (``dtype`` is then ignored), else a :class:`KVCache`."""
     L = cfg.n_layers if n_layers is None else n_layers
     shape = (L, batch, capacity, cfg.n_kv_heads, cfg.hd)
+    if cfg.kv_cache_dtype == "int8":
+        return QuantKVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                device=device),
+            length=torch.zeros((), dtype=torch.int32, device=device))
     dtype = dtype or cfg.tdtype
     return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
@@ -174,16 +244,22 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
 
 
 def cache_from_prefill(cfg: ModelConfig, k: Tensor, v: Tensor,
-                       capacity: int) -> KVCache:
+                       capacity: int):
     """Seed a decode cache with prefill K/V, stacked ``[L, B, S, nkv, hd]``:
-    slots ``[0, S)`` hold the prompt, the rest are zero."""
+    slots ``[0, S)`` hold the prompt, the rest are zero. An int8 cache
+    holds the prompt's codes and scales, and past it what the JAX package's
+    quantised zero padding holds: codes 0, scales 1e-8."""
     L, B, S = k.shape[:3]
     if S > capacity:
         raise ValueError(f"prompt length {S} exceeds cache capacity "
                          f"{capacity}")
     cache = init_cache(cfg, B, capacity, k.device, k.dtype, n_layers=L)
-    cache.k[:, :, :S] = k
-    cache.v[:, :, :S] = v
+    quant = isinstance(cache, QuantKVCache)
+    if quant:
+        cache.k_scale.fill_(1e-8)
+        cache.v_scale.fill_(1e-8)
+    for name, rows in kv_fields(k, v, quant):
+        getattr(cache, name)[:, :, :S] = rows
     cache.length.fill_(S)
     return cache
 
@@ -193,15 +269,24 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
                      dtype=None) -> PagedKVCache:
     """Zeroed paged pool (plus its trash block), all-sentinel block tables
     and zero positions. ``n_bt`` is the block-table width, the per-slot
-    logical capacity in blocks."""
+    logical capacity in blocks. With an int8 KV cache the pools are int8
+    and f32 scale pools of the same blocks (trash block included) come
+    with them."""
     shape = (cfg.n_layers, n_blocks + 1, block_size, cfg.n_kv_heads, cfg.hd)
-    dtype = dtype or cfg.tdtype
+    quant = cfg.kv_cache_dtype == "int8"
+    dtype = torch.int8 if quant else (dtype or cfg.tdtype)
+    scales = {}
+    if quant:
+        scales = {name: torch.zeros(shape[:-1], dtype=torch.float32,
+                                    device=device)
+                  for name in ("k_scale", "v_scale")}
     return PagedKVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
         block_tables=torch.full((batch, n_bt), n_blocks, dtype=torch.int32,
                                 device=device),
-        length=torch.zeros(batch, dtype=torch.int32, device=device))
+        length=torch.zeros(batch, dtype=torch.int32, device=device),
+        **scales)
 
 
 def _decode_valid(pos: Tensor, C: int, device) -> Tensor:
@@ -233,39 +318,49 @@ def _rope_positions(pos: Tensor) -> Tensor:
     return pos.reshape(1) if pos.dim() == 0 else pos[:, None]
 
 
-def attn_decode_stacked(cfg: ModelConfig, p: dict, x: Tensor, kv: KVCache,
+def attn_decode_stacked(cfg: ModelConfig, p: dict, x: Tensor, kv,
                         pos: Tensor, layer: int,
                         force_ref: bool = False) -> Tensor:
     """One-token step writing straight into the STACKED cache.
 
-    x [B,1,d]; ``pos`` is the new token's position, an int32 tensor: 0-d
-    and shared by every row, or ``[B]``, one per row. The JAX package's
+    x [B,1,d]; ``kv`` a stacked :class:`KVCache` or :class:`QuantKVCache`;
+    ``pos`` is the new token's position, an int32 tensor: 0-d and shared
+    by every row, or ``[B]``, one per row. The JAX package's
     ``dynamic_update_slice`` at a traced position becomes an in-place write
     into ``kv.k[layer, :, slot]``; like that op, a shared position past the
     capacity writes the last slot. Its per-row scatter drops a row whose
     position is past the capacity (a retired row riding a chunk); here that
-    row's slot index is clamped and its old value written back. No
-    device-to-host read happens here (the slot is an index tensor, never a
-    host int), so the step can be captured in a CUDA graph. Returns
-    y [B,1,d]; the caller owns the position.
+    row's slot index is clamped and its old value written back (codes and
+    scales alike). An int8 cache gets the new token's codes and scales,
+    and the layer is dequantised to the activation dtype before the
+    attend. No device-to-host read happens here (the slot is an index
+    tensor, never a host int), so the step can be captured in a CUDA
+    graph. Returns y [B,1,d]; the caller owns the position.
     """
     q, k_new, v_new = _project_qkv(cfg, p, x, _rope_positions(pos))
+    quant = isinstance(kv, QuantKVCache)
+    pairs = [(getattr(kv, name), new)
+             for name, new in kv_fields(k_new, v_new, quant)]
     C = kv.capacity
     slot = pos.clamp(max=C - 1)
     if pos.dim() == 0:
         idx = slot.reshape(1).long()
-        kv.k[layer].index_copy_(1, idx, k_new)
-        kv.v[layer].index_copy_(1, idx, v_new)
+        for buf, new in pairs:
+            buf[layer].index_copy_(1, idx, new)
     else:
         rows = torch.arange(x.shape[0], device=x.device)
-        keep = (pos >= C)[:, None, None]
-        kv.k[layer, rows, slot] = torch.where(keep, kv.k[layer, rows, slot],
-                                              k_new[:, 0])
-        kv.v[layer, rows, slot] = torch.where(keep, kv.v[layer, rows, slot],
-                                              v_new[:, 0])
+        past = pos >= C
+        for buf, new in pairs:
+            old = buf[layer, rows, slot]
+            keep = past.reshape((-1,) + (1,) * (old.dim() - 1))
+            buf[layer, rows, slot] = torch.where(keep, old, new[:, 0])
+    if quant:
+        k = _dequantize(kv.k[layer], kv.k_scale[layer], x.dtype)
+        v = _dequantize(kv.v[layer], kv.v_scale[layer], x.dtype)
+    else:
+        k, v = kv.k[layer], kv.v[layer]
     valid = _decode_valid(pos, C, x.device)
-    return _decode_attend(cfg, p, q, kv.k[layer], kv.v[layer], valid,
-                          force_ref)
+    return _decode_attend(cfg, p, q, k, v, valid, force_ref)
 
 
 def attn_decode_paged(cfg: ModelConfig, p: dict, x: Tensor,
@@ -274,15 +369,18 @@ def attn_decode_paged(cfg: ModelConfig, p: dict, x: Tensor,
     """One-token step against the paged block pool.
 
     x [B,1,d]; ``pos`` [B] int32 the per-slot positions. The new token's
-    K/V is written in place at ``pool[layer, block_tables[b, pos // bs],
-    pos % bs]``; a position past the block table, or behind a sentinel
-    entry, writes the trash block (the JAX package drops those writes).
-    The attend runs ``paged_decode_attention`` over the pool directly (the
-    Hopper kernel on a CUDA device, its plain version on the CPU).
-    ``force_ref=True`` takes the JAX package's reference path instead:
+    K/V (an int8 pool: its codes and scales) is written in place at
+    ``pool[layer, block_tables[b, pos // bs], pos % bs]``; a position past
+    the block table, or behind a sentinel entry, writes the trash block
+    (the JAX package drops those writes). A full-precision pool attends
+    with ``paged_decode_attention`` over the pool directly (the Hopper
+    kernel on a CUDA device, its plain version on the CPU). An int8 pool,
+    and ``force_ref=True``, take the JAX package's gather path instead:
     gather the slot's blocks into the dense ``[B, C, nkv, hd]`` layout
     (sentinels clipped to a real block, hidden by the ``slots <= pos``
-    mask) and reuse the slot attend. Returns y [B,1,d].
+    mask), dequantise an int8 pool, and reuse the slot attend (the slot
+    decode kernel, or with ``force_ref`` its reference). Returns
+    y [B,1,d].
     """
     B = x.shape[0]
     q, k_new, v_new = _project_qkv(cfg, p, x, pos[:, None])
@@ -293,9 +391,10 @@ def attn_decode_paged(cfg: ModelConfig, p: dict, x: Tensor,
     blk = torch.where(bidx < n_bt,
                       pc.block_tables[rows, bidx.clamp(max=n_bt - 1)], P)
     off = pos % bs
-    pc.k[layer, blk, off] = k_new[:, 0]
-    pc.v[layer, blk, off] = v_new[:, 0]
-    if not force_ref:
+    quant = pc.k_scale is not None
+    for name, new in kv_fields(k_new, v_new, quant):
+        getattr(pc, name)[layer, blk, off] = new[:, 0]
+    if not (force_ref or quant):
         out = kops.paged_decode_attention(q, pc.k[layer, :P], pc.v[layer, :P],
                                           pc.block_tables, pos)
         return torch.matmul(out.reshape(B, 1, -1), p["wo"])
@@ -303,6 +402,12 @@ def attn_decode_paged(cfg: ModelConfig, p: dict, x: Tensor,
     # entry reads a clipped real block, hidden because it lies past pos
     k, v, _ = kops.paged_gather(pc.k[layer, :P], pc.v[layer, :P],
                                 pc.block_tables, pos)
+    if quant:
+        ks, vs, _ = kops.paged_gather(pc.k_scale[layer, :P, ..., None],
+                                      pc.v_scale[layer, :P, ..., None],
+                                      pc.block_tables, pos)
+        k = _dequantize(k, ks[..., 0], x.dtype)
+        v = _dequantize(v, vs[..., 0], x.dtype)
     return _decode_attend(cfg, p, q, k, v,
                           _decode_valid(pos, k.shape[1], x.device),
-                          force_ref=True)
+                          force_ref)

@@ -24,6 +24,8 @@ from ..compat import torch_dtype
 
 #: families the port runs; the JAX package's others raise in ``validate``
 PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+#: decode KV cache storage types
+KV_CACHE_DTYPES = ("model", "int8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +61,10 @@ class ModelConfig:
     ssm: Optional[SSMConfig] = None         # set for a Mamba2 backbone
     rwkv: Optional[RWKVConfig] = None       # set for an RWKV6 backbone
     dtype: str = "bfloat16"
+    # decode KV cache storage: "model" (= dtype) or "int8" (symmetric
+    # absmax quantisation per (position, head), f32 scales beside the
+    # codes; the slot cache and the paged pool both)
+    kv_cache_dtype: str = "model"
     source: str = ""
 
     @property
@@ -111,6 +117,9 @@ class ModelConfig:
             raise ValueError("attn_every must be >= 1")
         if self.backbone_kind == "mamba2" and self.ssm is None:
             raise ValueError("a Mamba2 backbone needs an SSMConfig")
+        if self.kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r} not in "
+                             f"{KV_CACHE_DTYPES}")
 
 
 def reduced(cfg: ModelConfig, n_layers: int = 2,

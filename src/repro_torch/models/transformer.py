@@ -151,8 +151,9 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor,
     ``{"grouped": MambaCache [g, attn_every, ...], "shared": (k, v)
     [g, ...], "remainder": MambaCache [rem, ...]}`` (``None`` where a part
     is empty). With ``cache_capacity`` the K/V seeds become
-    fixed-capacity ``KVCache``s. ``force_ref`` runs the JAX package's
-    reference math in place of the kernels.
+    fixed-capacity ``KVCache``s (``QuantKVCache``s when the config's KV
+    cache is int8). ``force_ref`` runs the JAX package's reference math in
+    place of the kernels.
     """
     x = embed_tokens(cfg, params["embed"], tokens)
     S = x.shape[1]
@@ -238,7 +239,8 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int,
 def _attn_block_decode(cfg: ModelConfig, p: dict, x: Tensor, kv, pos,
                        layer: int, force_ref: bool) -> Tensor:
     """Attention block step writing K/V in place into layer ``layer`` of the
-    stacked slot cache or the paged pool."""
+    stacked slot cache (``KVCache`` or ``QuantKVCache``) or the paged
+    pool."""
     attend = (attention.attn_decode_paged if isinstance(kv, PagedKVCache)
               else attention.attn_decode_stacked)
     x = x + attend(cfg, p["attn"], apply_norm(cfg, p["ln1"], x), kv, pos,
@@ -293,8 +295,9 @@ def decode_step(cfg: ModelConfig, params: dict, token: Tensor, cache: dict,
     The counterpart of the JAX package's ``decode_step(static_layers=True)``:
     a loop over layers that updates the cache leaves in place. The dense
     stack dispatches on the cache type as ``_attn_block_static`` does: a
-    stacked :class:`KVCache` (one position for the batch, or one per row)
-    or a :class:`PagedKVCache`. Recurrent states are copied into their
+    stacked :class:`KVCache` or int8 :class:`QuantKVCache` (one position
+    for the batch, or one per row) or a :class:`PagedKVCache` (full
+    precision or int8). Recurrent states are copied into their
     stacked leaves; the hybrid's shared block attends over application
     ``gi`` of its stacked ``KVCache``. The KV caches' positions advance in
     place, so the returned cache is the argument's own KV cache objects;

@@ -49,24 +49,40 @@ prefills other groups than the slot mode, at other padded shapes and so
 in other summation orders, and a greedy argmax between near-equal logits
 can go the other way.
 
+The KV cache may be int8 (``kv_cache_dtype="int8"``), on the slot
+cache and on the paged pool: admission quantises the prefilled rows and
+inserts their codes and scales together, and the decode step attends
+over the dequantised cache with the slot decode kernel, paged or not.
+
+Hooks, as the JAX package's: a ``tracer`` (``obs.trace.Tracer``) records
+wall spans ``continuous.admit`` (rows, padded length) and
+``continuous.decode_chunk`` (chunk, occupancy, tokens in use), each
+ending at its host read; ``faults`` (``faults.FaultInjector``) gets
+``on_decode_step(self)`` at the top of every ``step`` and ``step_chunk``,
+even while idle, so a fault such as ``PoolPressure`` reserves and
+returns pool blocks on the host between replays. An external
+reservation only shrinks what admission sees (back-pressure); the device
+block table is copied only when a slot's blocks changed.
+
 The engine runs the dense attention backbone only, for which
 right-padded batched admission is exact and every admission batches
 freely; it raises ``NotImplementedError`` for the recurrent and hybrid
 families, which ``DecodeEngine`` serves. The JAX package's recurrent
-admission (equal-length groups), its windowed and capacity-dispatch MoE
-branches, and its int8 pools are not ported (``ROADMAP.md``).
+admission (equal-length groups) and its windowed and capacity-dispatch
+MoE branches are not ported (``ROADMAP.md``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from contextlib import nullcontext
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..models import decode_step, fold_sample, forward
-from ..models.attention import init_cache, init_paged_cache
+from ..models.attention import init_cache, init_paged_cache, kv_fields
 from ..models.config import ModelConfig
 from ..obs import graph_hooks
 
@@ -161,7 +177,8 @@ class ContinuousBatchingEngine:
     def __init__(self, cfg: ModelConfig, params: dict, max_slots: int = 4,
                  capacity: int = 512, chunk: int = 8, paged: bool = False,
                  block_size: int = 16, n_blocks: Optional[int] = None,
-                 temperature: float = 0.0, seed: int = 0):
+                 temperature: float = 0.0, seed: int = 0, tracer=None,
+                 faults=None):
         cfg.validate()
         if cfg.backbone_kind != "attn" or cfg.has_shared_attn:
             raise NotImplementedError(
@@ -176,6 +193,13 @@ class ContinuousBatchingEngine:
         self.chunk = chunk
         self.temperature = float(temperature)
         self.seed = int(seed)
+        # wall spans around admission and decode chunks (obs.trace); one
+        # `is not None` check per dispatch when absent
+        self.tracer = tracer
+        # fault injectors (faults.FaultInjector): on_decode_step fires at
+        # every step / chunk boundary, even while idle, so a pool-pressure
+        # reservation cannot outlive its hold window
+        self.faults = faults
         self.paged = paged
         if paged:
             self.block_size = block_size
@@ -249,24 +273,27 @@ class ContinuousBatchingEngine:
     def _insert(self, k: torch.Tensor, v: torch.Tensor, slot_idx,
                 lengths: torch.Tensor) -> None:
         """Write k prefilled rows (``k``/``v`` [L, k, S, nkv, hd]) into the
-        slot cache at ``slot_idx``, zeroing the rest of each row as the JAX
-        package's capacity-padded rows do; ``lengths`` [k] are the rows'
-        true prompt lengths."""
+        slot cache at ``slot_idx``, filling the rest of each row as the JAX
+        package's capacity-padded rows are (zeros; an int8 cache's scales
+        there are those of quantised zeros, 1e-8); ``lengths`` [k] are the
+        rows' true prompt lengths."""
         kv = self.cache["layers"]
         S = k.shape[2]
         if S > self.capacity:
             raise ValueError(f"prompt length {S} exceeds cache capacity "
                              f"{self.capacity}")
-        for buf, rows in ((kv.k, k), (kv.v, v)):
+        for name, rows in kv_fields(k, v, self.cfg.kv_cache_dtype == "int8"):
+            buf = getattr(kv, name)
             buf[:, slot_idx, :S] = rows
-            buf[:, slot_idx, S:] = 0
+            buf[:, slot_idx, S:] = 1e-8 if name.endswith("scale") else 0
         kv.length[slot_idx] = lengths
 
     def _insert_paged(self, k: torch.Tensor, v: torch.Tensor, slot_idx,
                       lengths: torch.Tensor) -> None:
-        """Scatter k prefilled rows into the paged pool. Logical position p
-        of row r lands at ``pool[:, table[slot, p // bs], p % bs]``; pad
-        positions (p >= lengths[r]) land on the trash block."""
+        """Scatter k prefilled rows into the paged pool (an int8 pool: their
+        codes and, beside them, their scales). Logical position p of row r
+        lands at ``pool[:, table[slot, p // bs], p % bs]``; pad positions
+        (p >= lengths[r]) land on the trash block."""
         pc = self.cache["layers"]
         P, bs = pc.n_blocks, pc.block_size
         S = k.shape[2]
@@ -276,8 +303,8 @@ class ContinuousBatchingEngine:
         blk = torch.where(ppos[None] < lengths[:, None],
                           rows_bt[:, bidx], P)                   # [k, S]
         off = (ppos % bs).expand_as(blk)
-        pc.k[:, blk, off] = k
-        pc.v[:, blk, off] = v
+        for name, rows in kv_fields(k, v, self.cfg.kv_cache_dtype == "int8"):
+            getattr(pc, name)[:, blk, off] = rows
         pc.length[slot_idx] = lengths
 
     # -------------------------------------------------- paged block plumbing
@@ -375,6 +402,22 @@ class ContinuousBatchingEngine:
         lengths = np.asarray([len(req[1]) for _, req in group],
                              dtype=np.int64)
         S = int(lengths.max())
+        ctx = (self.tracer.span("continuous.admit", cat="engine",
+                                args={"rows": len(group), "S": S})
+               if self.tracer is not None else nullcontext())
+        with ctx:
+            firsts = self._prefill_insert(group, lengths, S)
+        for r, (slot, (rid, _, budget, max_extra)) in enumerate(group):
+            first = int(firsts[r])
+            self.slots[slot] = Slot(
+                rid=rid, budget=budget, max_extra=max_extra, generated=1,
+                tokens=[first], last_token=first,
+                prompt_len=int(lengths[r]))
+
+    def _prefill_insert(self, group, lengths: np.ndarray,
+                        S: int) -> np.ndarray:
+        """Prefill the group's prompts right-padded to ``S``, insert their
+        K/V into the cache, and return the first tokens (one host read)."""
         tokens = np.zeros((len(group), S), dtype=np.int64)
         for r, (_, req) in enumerate(group):
             tokens[r, :lengths[r]] = req[1]
@@ -400,13 +443,7 @@ class ContinuousBatchingEngine:
             self._insert_paged(k, v, slot_idx, lengths_d)
         else:
             self._insert(k, v, slot_idx, lengths_d)
-        firsts = graph_hooks.to_host(firsts, "continuous.admit")
-        for r, (slot, (rid, _, budget, max_extra)) in enumerate(group):
-            first = int(firsts[r])
-            self.slots[slot] = Slot(
-                rid=rid, budget=budget, max_extra=max_extra, generated=1,
-                tokens=[first], last_token=first,
-                prompt_len=int(lengths[r]))
+        return graph_hooks.to_host(firsts, "continuous.admit")
 
     @property
     def n_active(self) -> int:
@@ -437,8 +474,9 @@ class ContinuousBatchingEngine:
     def check_block_invariants(self) -> bool:
         """Audit the paged pool against this engine's slot state: the
         allocator's balance against the per-slot block lists, and the slot
-        reservations against the allocator's reservation counter. ``True``
-        on a slot engine."""
+        reservations against the allocator's reservation counter (covered,
+        ``>=``: an external tenant such as ``faults.PoolPressure`` may
+        hold a reservation of its own). ``True`` on a slot engine."""
         if not self.paged:
             return True
         held = sum(len(b) for b in self._slot_blocks)
@@ -454,7 +492,8 @@ class ContinuousBatchingEngine:
         """One decode step for all active slots; returns finished Slots.
 
         The per-token reference path: one decode step and one host read
-        per token. ``step_chunk`` has the same semantics.
+        per token (``step_chunk(1)``, whose top runs the fault hook once).
+        ``step_chunk`` has the same semantics.
         """
         return self.step_chunk(1)
 
@@ -470,6 +509,8 @@ class ContinuousBatchingEngine:
         in paged mode its surplus writes past its reservation land on the
         trash block).
         """
+        if self.faults is not None:
+            self.faults.on_decode_step(self)
         chunk = self.chunk if chunk is None else chunk
         if self.n_active == 0 or chunk <= 0:
             return []
@@ -484,10 +525,16 @@ class ContinuousBatchingEngine:
              [s.generated if s else 0 for s in self.slots]],
             dtype=torch.long))
         step = self._chunk_step(chunk)
-        for _ in range(chunk):
-            self._graphs.run(chunk, step)
-        toks = graph_hooks.to_host(self._outs[chunk][0],
-                                   self._graphs.label)   # [chunk, slots]
+        ctx = (self.tracer.span("continuous.decode_chunk", cat="engine",
+                                args={"chunk": chunk,
+                                      "occupancy": self.n_active,
+                                      "tokens_in_use": self.tokens_in_use})
+               if self.tracer is not None else nullcontext())
+        with ctx:
+            for _ in range(chunk):
+                self._graphs.run(chunk, step)
+            toks = graph_hooks.to_host(self._outs[chunk][0],
+                                       self._graphs.label)   # [chunk, slots]
         finished = []
         for i, s in enumerate(self.slots):
             if s is None:

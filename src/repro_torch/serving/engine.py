@@ -29,10 +29,18 @@ the device its parameters live on: on a CUDA device every prefill
 attention, wkv or SSD scan, decode attention and SwiGLU MLP goes through
 the Hopper kernels, and the decode kernels run inside the captured step.
 Prefill stays eager (its shapes follow the prompt). The decode cache is
-updated in place.
+updated in place; an int8 KV cache (``kv_cache_dtype="int8"``) is a
+static buffer like any other, its scales copied in beside its codes.
+
+With a ``tracer`` (``obs.trace.Tracer``) the engine records wall spans
+``engine.prefill`` and ``engine.decode_chunk``, as the JAX package's does.
+A chunk's span ends at its host read; the prefill span ends at a device
+synchronisation, made only when a tracer is present, so the untraced
+path is unchanged.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Optional, Sequence
 
 import numpy as np
@@ -49,7 +57,7 @@ _NO_EOS = -1
 class DecodeEngine:
     def __init__(self, cfg: ModelConfig, params: dict,
                  cache_capacity: int = 512, temperature: float = 0.0,
-                 chunk: int = 16, use_scan: bool = True):
+                 chunk: int = 16, use_scan: bool = True, tracer=None):
         self.cfg = cfg
         self.params = params
         self.device = params["embed"]["tok"].device
@@ -57,6 +65,9 @@ class DecodeEngine:
         self.temperature = temperature
         self.chunk = chunk
         self.use_scan = use_scan
+        # wall spans around prefill and decode chunks when a Tracer is
+        # attached; one `is not None` check per dispatch otherwise
+        self.tracer = tracer
         # the one generator stochastic sampling draws from, reseeded per
         # call and registered with every captured step
         self._generator = (torch.Generator(device=self.device)
@@ -87,7 +98,7 @@ class DecodeEngine:
         tokens. ``seed`` seeds the ``torch.Generator`` that stochastic
         sampling draws from; greedy decoding uses none.
         """
-        B, _ = prompts.shape
+        B, S = prompts.shape
         use_scan = self.use_scan if use_scan is None else use_scan
         chunk = self.chunk if chunk is None else chunk
         if chunk < 1:
@@ -98,7 +109,14 @@ class DecodeEngine:
                              f"shape {budgets.shape}")
         total = budgets + max_extra_tokens
         T = int(total.max())
-        logits, cache = self.prefill(prompts)
+        if self.tracer is not None:
+            with self.tracer.span("engine.prefill", cat="engine",
+                                  args={"B": B, "S": S}):
+                logits, cache = self.prefill(prompts)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        else:
+            logits, cache = self.prefill(prompts)
         generator = self._generator
         if generator is not None:
             generator.manual_seed(seed)
@@ -178,14 +196,19 @@ class DecodeEngine:
         pieces = []
         emitted = 0
         n_gen = np.zeros(token.shape[0], dtype=np.int32)
+        tracer = self.tracer
         while emitted < T:
-            for _ in range(chunk):
-                self._graphs.run(key, step)
-            # the chunk's tokens, the alive mask and the counts in one
-            # device->host copy
-            host = graph_hooks.to_host(torch.cat(
-                [st["out"], st["alive"][:, None].long(),
-                 st["n_gen"][:, None].long()], dim=1), "engine.chunk")
+            ctx = (tracer.span("engine.decode_chunk", cat="engine",
+                               args={"chunk": chunk, "emitted": emitted})
+                   if tracer is not None else nullcontext())
+            with ctx:
+                for _ in range(chunk):
+                    self._graphs.run(key, step)
+                # the chunk's tokens, the alive mask and the counts in one
+                # device->host copy, which ends the span
+                host = graph_hooks.to_host(torch.cat(
+                    [st["out"], st["alive"][:, None].long(),
+                     st["n_gen"][:, None].long()], dim=1), "engine.chunk")
             pieces.append(host[:, :chunk])
             n_gen = host[:, chunk + 1].astype(np.int32)
             emitted += chunk
@@ -218,8 +241,9 @@ class DecodeEngine:
 
 
 def _copy_tree(dst, src) -> None:
-    """Copy every tensor leaf of a decode cache (a dict of cache tuples)
-    into the same leaf of ``dst``, in place."""
+    """Copy every tensor leaf of a decode cache (a dict of cache tuples:
+    an int8 cache's codes and scales alike) into the same leaf of ``dst``,
+    in place."""
     if isinstance(dst, dict):
         for k in dst:
             _copy_tree(dst[k], src[k])

@@ -1,8 +1,4 @@
-"""Serving metrics aggregation.
-
-The report fields of ``repro.serving.metrics.ServingReport`` that a run
-without the tracer, monitor or admission control fills in.
-"""
+"""Serving metrics aggregation: the port of ``repro.serving.metrics``."""
 from __future__ import annotations
 
 import dataclasses
@@ -47,11 +43,21 @@ class ServingReport:
     estimator_state: dict | None = None
     wait_percentiles: dict | None = None
     system_time_percentiles: dict | None = None
+    # last predicted-vs-measured drift check; None on the server path
+    # (no drift monitor runs there)
+    drift: dict | None = None
     # KV occupancy sampled at the continuous engine's chunk boundaries
     # (occupancy_summary); None without a continuous engine
     occupancy: dict | None = None
     # correctly answered served requests per unit time
     goodput: float | None = None
+    # admission control (serving.admission): requests shed, their share
+    # of the stream, and the time-weighted fraction spent at each
+    # degradation level ({"0": 0.93, "1": 0.07, ...}; None when no
+    # admission controller ran)
+    n_shed: int = 0
+    shed_fraction: float = 0.0
+    degradation_occupancy: dict | None = None
 
 
 def empty_report(n_resolves: int = 0,
@@ -84,6 +90,7 @@ def occupancy_summary(samples, pool_tokens: int) -> dict | None:
 def summarize(problem: Problem, completed: Sequence[CompletedRequest],
               horizon: float, n_resolves: int = 0,
               estimator_state: dict | None = None,
+              drift: dict | None = None,
               occupancy: dict | None = None) -> ServingReport:
     if not completed:
         return empty_report(n_resolves, estimator_state)
@@ -122,6 +129,7 @@ def summarize(problem: Problem, completed: Sequence[CompletedRequest],
         estimator_state=estimator_state,
         wait_percentiles=percentile_summary(waits),
         system_time_percentiles=percentile_summary(syst),
+        drift=drift,
         occupancy=occupancy,
         goodput=float(correct.sum() / max(horizon, 1e-9)),
     )

@@ -33,11 +33,18 @@ class Scheduler:
         self._seq = 0
         self.n_admitted = 0
 
-    def admit(self, req: Request, now: float, observe: bool = True) -> None:
-        """Stamp the allocator's budget for the request's task and enqueue."""
+    def admit(self, req: Request, now: float, observe: bool = True,
+              budget_cap: Optional[int] = None) -> None:
+        """Stamp the allocator's budget for the request's task and enqueue.
+
+        ``budget_cap`` (admission control's degradation ladder) bounds the
+        stamped budget before any discipline key is computed, so SJF and
+        priority ordering see the degraded service time."""
         if observe:
             self.allocator.observe_arrival(req.task_index, now)
         req.budget = self.allocator.budget_for(req.task_index)
+        if budget_cap is not None:
+            req.budget = int(min(req.budget, budget_cap))
         req.phase = Phase.QUEUED
         self.n_admitted += 1
         if self.discipline == "fifo":

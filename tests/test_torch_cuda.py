@@ -971,3 +971,114 @@ def test_seeded_stochastic_decode_is_reproducible(cuda_device):
     np.testing.assert_array_equal(runs[0], runs[1])
     assert not np.array_equal(runs[0], runs[2])
     np.testing.assert_array_equal(runs[0], loop)
+
+
+# ---- the int8 KV cache and the server's hooks on the card
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["decode", "slot", "paged"])
+def test_int8_graph_chunk_equals_eager_chunk(cuda_device, case):
+    """An int8 cache through the replayed chunk equals the same step run
+    eagerly, bit for bit (tokens, codes and scales), in bf16; the decode
+    launches are the slot kernel's, one a layer a replayed step, and never
+    the paged kernel's (an int8 pool is gathered and dequantised)."""
+    import numpy as np
+
+    from repro_torch.obs import graph_hooks
+    from repro_torch.serving import ContinuousBatchingEngine, DecodeEngine
+
+    cfg, params = _bf16_model(cuda_device, "qwen3-0.6b")
+    cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    runs = []
+    for make in (lambda e: e, _eager):
+        graph_hooks.reset()
+        reset_launches()
+        if case == "decode":
+            eng = make(DecodeEngine(cfg, params, cache_capacity=64, chunk=4))
+            prompts = np.arange(27, dtype=np.int32).reshape(3, 9) % 89 + 2
+            out = eng.generate(prompts, [7, 0, 17], max_extra_tokens=3)
+            runs.append((out["tokens"].tolist(),
+                         _leaves(eng._static[(3, 4)]["cache"])))
+            label = "engine.chunk"
+        else:
+            eng = make(ContinuousBatchingEngine(
+                cfg, params, max_slots=3, capacity=64, chunk=4,
+                paged=case == "paged", block_size=8, n_blocks=12))
+            runs.append((_drain(eng), _leaves(eng.cache)))
+            label = f"continuous.{case}"
+        if len(runs) == 1:
+            launches = dict(LAUNCHES)
+            steps = (graph_hooks.capture_counts()[label]
+                     + graph_hooks.replay_counts()[label])
+    (got, got_cache), (want, want_cache) = runs
+    assert got == want
+    assert any(t.dtype == torch.int8 for t in got_cache)
+    assert all(torch.equal(a, b) for a, b in zip(got_cache, want_cache))
+    assert "paged_decode_attention" not in launches
+    assert launches["decode_attention"] == cfg.n_layers * steps
+
+
+@pytest.mark.cuda
+def test_int8_paged_drain_equals_slot_drain_on_card(cuda_device):
+    """With the same admission groups (every request admitted at once),
+    the int8 paged drain and the int8 slot drain attend over the same
+    dequantised values through the same kernel: equal tokens in bf16."""
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    cfg, params = _bf16_model(cuda_device, "qwen3-0.6b")
+    cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    kw = dict(max_slots=len(GRAPH_REQUESTS), capacity=64, chunk=4,
+              block_size=8)
+    paged = _drain(ContinuousBatchingEngine(cfg, params, paged=True, **kw))
+    slot = _drain(ContinuousBatchingEngine(cfg, params, **kw))
+    assert paged == slot
+
+
+@pytest.mark.cuda
+def test_hooked_server_one_capture_across_ladder_on_card(cuda_device):
+    """``LLMServer`` with the admission ladder, faults, tracer and metrics
+    over the paged engine on the card: requests are shed, admitted budgets
+    are degraded, and the captured step serves every budget (one capture)."""
+    import numpy as np
+
+    from repro_torch import faults
+    from repro_torch.core import (Problem, ServerParams, TokenBudgetAllocator,
+                                  paper_problem, solve)
+    from repro_torch.obs import (MetricsRegistry, Tracer, graph_hooks,
+                                 validate_request_trees)
+    from repro_torch.queueing_sim import generate_stream
+    from repro_torch.serving import (AdmissionConfig, AdmissionController,
+                                     ContinuousBatchingEngine, LLMServer,
+                                     ServerConfig)
+
+    cfg, params = _bf16_model(cuda_device, "qwen3-0.6b")
+    base = paper_problem()
+    prob = Problem(tasks=base.tasks, server=ServerParams(0.3, 30.0, 64.0))
+    lengths = solve(prob).lengths_int.astype(np.float64)
+    tasks = prob.tasks
+    es = float((tasks.pi.numpy() * (tasks.t0.numpy()
+                                    + tasks.c.numpy() * lengths)).sum())
+    alloc = TokenBudgetAllocator(prob, ewma_halflife=2.0,
+                                 min_resolve_interval=10 ** 9)
+    adm = AdmissionController(alloc.solution.lengths_int, 64.0,
+                              AdmissionConfig(dwell_down=1e9))
+    fs = faults.FaultSet(faults.PoolPressure(0.3, 2, 3, seed=8),
+                         faults.StragglerDecode(0.25, 3.0, seed=4))
+    tracer = Tracer()
+    eng = ContinuousBatchingEngine(cfg, params, max_slots=4, capacity=128,
+                                   chunk=4, paged=True, block_size=8,
+                                   n_blocks=24, tracer=tracer)
+    graph_hooks.reset()
+    srv = LLMServer(prob, ServerConfig(generate_tokens=True, batch_size=4,
+                                       max_extra_tokens=2),
+                    engine=eng, allocator=alloc, tracer=tracer,
+                    metrics=MetricsRegistry(), admission=adm, faults=fs)
+    rep = srv.run(generate_stream(tasks, 2.0 / es, 24, seed=3,
+                                  prompt_len_range=(4, 8)))
+    assert rep.n_shed > 0 and rep.n + rep.n_shed == 24
+    assert all(c.n_tokens == c.budget + 2 for c in srv.completed)
+    validate_request_trees(tracer.to_chrome(),
+                           [c.rid for c in srv.completed])
+    assert graph_hooks.assert_max_captures("continuous.paged", 1) == 1
+    fs.release_all(eng)
+    assert eng.check_block_invariants()
+    assert eng.allocator.n_free == eng.allocator.n_blocks
