@@ -17,7 +17,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    d 4096 / d_ff 12288; flash on a padded admission group of
    8 x 113 and the FFN at T = 8, the continuous engine's 8 decode slots,
    and at the largest T the drains' batched admission prefills, group
-   size x padded length, printed), with the maximum error beside its
+   size x padded length, printed; starcoder2-3b's flash at S 4200 with
+   its window of 4096 and G 12 and its slot decode over a ring of 4096,
+   full and wrapping past slot 0; stablelm-3b's head width 80 at G 1 in
+   flash and slot decode; the FFN at T = 1 at olmo-1b's and stablelm-3b's
+   widths; both scans at B = 4, S = 64, a continuous admission group),
+   with the maximum error beside its
    tolerance (for bf16 decode, per slot, in ulps of the slot's outputs;
    for the scans also the final state's, and their plans: channel slices
    a head, CTAs, chunks), the kernel's median time (CUDA
@@ -106,12 +111,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
    same in-situ check, then phase 6 in bf16 (the SSD scan, flash, slot
    decode and FFN kernels must run; slot decode once per shared-block
    application per replayed step). Each model is freed before the next
-   phase;
-12. qwen3-8b, the paper's model: phases 4 and 5 in f32 at full width and
+   phase. Both then run through the continuous engine:
+   *continuous serve*, the stream through LLMServer(batch_size=8) on the
+   slot ContinuousBatchingEngine (8 slots, capacity 2048, chunk 16) in
+   bf16 at full width, rows admitted in groups of equal prompt length
+   (checked): exact budgets, one capture, one host read a chunk, the
+   scan once a layer a group, the hybrid's flash once a shared-block
+   application a group and slot decode once an application a replayed
+   step; *recurrent drain*, 8 of the stream's prompts cut to two lengths
+   (4 of each) so each group's scans run at B = 4 (checked), in f32 at
+   a cut depth (rwkv6 4 of 24 layers; zamba2 one group of 6 plus its 3
+   remaining layers), the step run eagerly: each row's first 8 decode
+   logits within 1e-3 of the same prompt served alone through
+   DecodeEngine, and its tokens equal;
+12. the other dense ids, olmo-1b (LayerNorm without parameters),
+   stablelm-3b (LayerNorm, head width 80) and starcoder2-3b (LayerNorm,
+   GELU MLP, G 12, a sliding window of 4096): phase 4 in f32 at full
+   width (flash and slot decode launched; the FFN kernel exactly for the
+   SwiGLU models), for starcoder2 the *window check* (a 4200-token prompt
+   into a ring of 4096 and 64 decode steps past the wrap, kernels against
+   force_ref: logits within 1e-3, tokens equal), phase 6 in bf16 (the FFN
+   launched on olmo and stablelm, never on starcoder2), and starcoder2's
+   continuous serve as in phase 11 (flash once a layer a group, slot
+   decode once a layer a replayed step);
+13. qwen3-8b, the paper's model: phases 4 and 5 in f32 at full width and
    4 of its 36 layers (QWEN3_8B_F32_LAYERS: the f32 weights and the
    reference path's copies), then phase 6 in bf16 at full width and full
    depth, the server on the wall clock (ServerConfig(mode="wall"));
-13. calibration: fit_latency to the qwen3-8b serve's per-request (tokens,
+14. calibration: fit_latency to the qwen3-8b serve's per-request (tokens,
    seconds), fit_step_latency to phase 9's points; paper_problem solved
    again with the fitted t0 and c, its budgets printed beside the
    paper's, and the occupancy model at the fitted constants. These print
@@ -119,7 +146,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 The line before the last is the kernels' JSON summary (with each kernel's
 launches on every serve path that ran it, the int8 serve, the int8 paged
-drain and the hooks serve among them); the last line is
+drain, the hooks serve, every continuous serve, the recurrent drains and
+the window check among them); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -198,6 +226,15 @@ QWEN3_BATCHED_LAYERS = 8  # depth of the continuous serve and the drains
 # qwen3-8b's: 8 kv heads of 128 with 4 query heads each, d 4096 / d_ff 12288
 Q8_H, Q8_G, Q8_D, Q8_DFF = 8, 4, 4096, 12288
 QWEN3_8B_F32_LAYERS = 4   # depth of qwen3-8b's f32 check (f32 weights + ref)
+# starcoder2-3b's: 2 kv heads of 128 with 12 query heads each, a window of
+# 4096 (its decode ring), and the window check's prompt, past the window
+SC_H, SC_G, SC_WINDOW, SC_S = 2, 12, 4096, 4200
+SC_STEPS = 64             # the window check's decode steps, all past the wrap
+# stablelm-3b's: 32 kv heads of 80, one query head each; d / d_ff
+SL_H, SL_HD, SL_D, SL_DFF = 32, 80, 2560, 6912
+OLMO_D, OLMO_DFF = 2048, 8192  # olmo-1b's d / d_ff
+SCAN_GROUP_B, SCAN_GROUP_S = 4, 64  # a continuous admission group's scans
+DRAIN_BUDGET = 12         # the recurrent drain's budget (no answer tokens)
 PIN_BUDGET = 64           # budget cap of the eager-vs-graph pin's requests
 OCCUPANCIES = (1, 2, 4, 8)  # continuous engines timed for fit_step_latency
 HOOKS_QUERIES = 48        # the hooks serve's stream, at 2x the service rate
@@ -355,26 +392,35 @@ def kernel_cases(dev, flush):
                 "ctas": plan.ctas, "hd_pad": plan.hd_pad,
                 "block_k": plan.block_k}
 
-    def flash_case(dtype, S, H, G, HD, main, B=1):
+    def flash_case(dtype, S, H, G, HD, main, B=1, window=None):
         qm = randn(B, S, H * G, HD, dtype=dtype)
         km = randn(B, S, H, HD, dtype=dtype)
         vm = randn(B, S, H, HD, dtype=dtype)
         q = qm.reshape(B, S, H, G, HD).permute(0, 2, 3, 1, 4)
         k, v = km.permute(0, 2, 1, 3), vm.permute(0, 2, 1, 3)
         fa = flash_attention.flash_attention
-        got = fa(q, k, v)
-        want = flash_attention.flash_attention_plain(q, k, v)
+        plain = flash_attention.flash_attention_plain
+        got = fa(q, k, v, window=window)
+        want = plain(q, k, v, window=window)
         ql = qm.transpose(1, 2)
         kl = k.repeat_interleave(G, dim=1)
         vl = v.repeat_interleave(G, dim=1)
-        mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+        pos = torch.arange(S, device=dev)
+        mask = pos[None] <= pos[:, None]
+        if window is not None:
+            mask &= pos[None] > pos[:, None] - window
         el = qm.element_size()
         nbytes = B * (2 * H * G + 2 * H) * S * HD * el
-        flops = B * H * G * S * (S + 1) / 2 * 4 * HD
-        record("flash_attention", f"B={B} S={S} H={H} G={G} hd={HD}", dtype,
+        # the (query, key) pairs the mask keeps: a window cuts each row
+        pairs = sum(min(s + 1, window or S) for s in range(S))
+        flops = B * H * G * pairs * 4 * HD
+        case = f"B={B} S={S} H={H} G={G} hd={HD}"
+        if window is not None:
+            case += f" window={window}"
+        record("flash_attention", case, dtype,
                got, want, TOL[dtype], TOL_REASON[dtype],
-               lambda: fa(q, k, v),
-               lambda: flash_attention.flash_attention_plain(q, k, v),
+               lambda: fa(q, k, v, window=window),
+               lambda: plain(q, k, v, window=window),
                lambda: F.scaled_dot_product_attention(ql, kl, vl,
                                                       attn_mask=mask),
                nbytes, flops, main=main,
@@ -392,6 +438,11 @@ def kernel_cases(dev, flush):
     for dtype, S in ((torch.bfloat16, 113), (torch.float32, 37)):
         flash_case(dtype, S, Z_H, 1, Z_HD, main=False)     # zamba2's block
         flash_case(dtype, S, Q8_H, Q8_G, HD, main=False)   # qwen3-8b's
+    # starcoder2-3b's prefill past its window (the window check's prompt),
+    # and stablelm-3b's head width 80 at G = 1 (padded to 128 in the CTA)
+    flash_case(torch.bfloat16, SC_S, SC_H, SC_G, HD, main=False,
+               window=SC_WINDOW)
+    flash_case(torch.bfloat16, max(prompt_lens), SL_H, 1, SL_HD, main=False)
 
     # -- 2. slot decode attention over the stacked cache's [B,C,nkv,hd]:
     # batch 1 (DecodeEngine) and the continuous engine's 8 slot rows at
@@ -409,7 +460,7 @@ def kernel_cases(dev, flush):
                 else "none: one split writes the output"}
 
     def decode_case(dtype, B, n_valid, H, G, HD, main, mask=None,
-                    what=None, dominant=None):
+                    what=None, dominant=None, C=C):
         """``mask``: a [B, C] valid mask in place of the prefixes
         ``n_valid`` (then ``what`` names it); ``dominant``: a slot whose
         key is set to 4 q of head 0, so its score dominates."""
@@ -462,6 +513,18 @@ def kernel_cases(dev, flush):
     for dtype in (torch.bfloat16, torch.float32):        # zamba2's block
         decode_case(dtype, 1, (300,), Z_H, 1, Z_HD, main=False)
         decode_case(dtype, 1, (300,), Q8_H, Q8_G, HD, main=False)  # qwen3-8b
+        # starcoder2-3b's ring of 4096 at G 12: full (wrapped), and a mask
+        # that wraps past slot 0; stablelm-3b's head width 80 at G 1
+        ring = torch.ones(1, SC_WINDOW, dtype=torch.bool, device=dev)
+        decode_case(dtype, 1, None, SC_H, SC_G, HD, False, mask=ring,
+                    what=f"valid=all {SC_WINDOW} (a wrapped ring)",
+                    C=SC_WINDOW)
+        ring = ring.clone()
+        ring[0, 200:SC_WINDOW - 300] = False
+        decode_case(dtype, 1, None, SC_H, SC_G, HD, False, mask=ring,
+                    what=f"valid={SC_WINDOW - 300}..{SC_WINDOW - 1}, 0..199 "
+                         "(a ring wrapping past slot 0)", C=SC_WINDOW)
+        decode_case(dtype, 1, (300,), SL_H, 1, SL_HD, main=False)
     # merge-adversarial masks at batch 1 (n_split > 1): every valid slot in
     # split 0's tiles; a ring window; one dominant score in the last split
     for dtype in (torch.bfloat16, torch.float32):
@@ -614,75 +677,85 @@ def kernel_cases(dev, flush):
                      (torch.bfloat16, 37), (torch.float32, 1)):
         ffn_case(dtype, T, Z_D, Z_DFF, main=False)       # zamba2's block
         ffn_case(dtype, T, Q8_D, Q8_DFF, main=False)     # qwen3-8b's
+    for dtype in (torch.bfloat16, torch.float32):        # decode, T = 1
+        ffn_case(dtype, 1, OLMO_D, OLMO_DFF, main=False)  # olmo-1b's
+        ffn_case(dtype, 1, SL_D, SL_DFF, main=False)      # stablelm-3b's
 
-    # -- 5. the scans at the recurrent prefills' shapes (B = 1), in the
+    # -- 5. the scans at the recurrent prefills' shapes (B = 1), and at a
+    # continuous admission group's (B = 4 equal-length prompts), in the
     # models' layouts: [B, S, H, ...] viewed as [B, H, S, ...]
     sms = _cuda.sm_count(0)
+
+    def scan_cases(dtype, B, S, main):
+        # rwkv6: decays -exp(1.5 N - 2), from ~0 down to ~-12 per token
+        r, k, v = (randn(B, S, RWKV_H, RWKV_HD, dtype=dtype, scale=0.5)
+                   .transpose(1, 2) for _ in range(3))
+        la = -torch.exp(randn(B, S, RWKV_H, RWKV_HD, dtype=torch.float32,
+                              scale=1.5) - 2.0).transpose(1, 2)
+        u = randn(RWKV_H, RWKV_HD, dtype=torch.float32,
+                  scale=0.3)[None].expand(B, RWKV_H, RWKV_HD)
+        got, gs = rwkv6_scan.rwkv6_scan(r, k, v, la, u)
+        want, ws = rwkv6_scan.rwkv6_scan_plain(r, k, v, la, u)
+        el = r.element_size()
+        # r, k, v, y in the dtype; la, the final state in f32; u once
+        nbytes = B * RWKV_H * (4 * S * RWKV_HD * el + S * RWKV_HD * 4
+                               + RWKV_HD * RWKV_HD * 4) + RWKV_H * RWKV_HD * 4
+        # the recurrence: 7 hd^2 per token and head
+        flops = 7 * B * RWKV_H * S * RWKV_HD * RWKV_HD
+        record("rwkv6_scan", f"B={B} H={RWKV_H} S={S} hd={RWKV_HD}", dtype,
+               got, want, scan_tol("rwkv6_scan", dtype, want),
+               SCAN_REASON[dtype],
+               lambda: rwkv6_scan.rwkv6_scan(r, k, v, la, u),
+               lambda: rwkv6_scan.rwkv6_scan_plain(r, k, v, la, u), None,
+               nbytes, flops, main=main, state=(gs, ws),
+               fields=rwkv6_scan.rwkv6_plan(B, RWKV_H, S, RWKV_HD, dtype,
+                                            sms).fields())
+        # ssd: dt = softplus(N - 2), A = -1; B/C one row for all heads
+        x = randn(B, S, SSD_H, SSD_HD, dtype=dtype).transpose(1, 2)
+        dt = F.softplus(randn(B, S, SSD_H, dtype=torch.float32) - 2.0) \
+            .transpose(1, 2)
+        a = -dt
+        bc = randn(B, S, 2 * SSD_DS, dtype=dtype)
+        Bm = bc[..., :SSD_DS][:, None].expand(B, SSD_H, S, SSD_DS)
+        Cm = bc[..., SSD_DS:][:, None].expand(B, SSD_H, S, SSD_DS)
+        got, gs = ssd_scan.ssd_scan(x, dt, a, Bm, Cm)
+        want, ws = ssd_scan.ssd_scan_plain(x, dt, a, Bm, Cm)
+        el = x.element_size()
+        # x, y per head in the dtype, dt and a in f32, B and C once a row
+        # (shared by the heads), the final state in f32
+        nbytes = B * (SSD_H * (2 * S * SSD_HD * el + 2 * S * 4
+                               + SSD_HD * SSD_DS * 4)
+                      + 2 * S * SSD_DS * el)
+        # the recurrence: 5 hd ds per token and head
+        flops = 5 * B * SSD_H * S * SSD_HD * SSD_DS
+        record("ssd_scan", f"B={B} H={SSD_H} S={S} hd={SSD_HD} "
+               f"ds={SSD_DS}", dtype, got, want,
+               scan_tol("ssd_scan", dtype, want), SCAN_REASON[dtype],
+               lambda: ssd_scan.ssd_scan(x, dt, a, Bm, Cm),
+               lambda: ssd_scan.ssd_scan_plain(x, dt, a, Bm, Cm), None,
+               nbytes, flops, main=main, state=(gs, ws),
+               fields=ssd_scan.ssd_plan(B, SSD_H, S, SSD_HD, SSD_DS,
+                                        dtype, sms).fields())
+
     for dtype in (torch.bfloat16, torch.float32):
         for S in SCAN_S:
-            main = dtype == torch.bfloat16 and S == 113
-            # rwkv6: decays -exp(1.5 N - 2), from ~0 down to ~-12 per token
-            r, k, v = (randn(1, S, RWKV_H, RWKV_HD, dtype=dtype, scale=0.5)
-                       .transpose(1, 2) for _ in range(3))
-            la = -torch.exp(randn(1, S, RWKV_H, RWKV_HD, dtype=torch.float32,
-                                  scale=1.5) - 2.0).transpose(1, 2)
-            u = randn(RWKV_H, RWKV_HD, dtype=torch.float32,
-                      scale=0.3)[None].expand(1, RWKV_H, RWKV_HD)
-            got, gs = rwkv6_scan.rwkv6_scan(r, k, v, la, u)
-            want, ws = rwkv6_scan.rwkv6_scan_plain(r, k, v, la, u)
-            el = r.element_size()
-            # r, k, v, y in the dtype; la, u, the final state in f32
-            nbytes = RWKV_H * (4 * S * RWKV_HD * el + S * RWKV_HD * 4
-                               + RWKV_HD * 4 + RWKV_HD * RWKV_HD * 4)
-            # the recurrence: 7 hd^2 per token and head
-            flops = 7 * RWKV_H * S * RWKV_HD * RWKV_HD
-            record("rwkv6_scan", f"B=1 H={RWKV_H} S={S} hd={RWKV_HD}", dtype,
-                   got, want, scan_tol("rwkv6_scan", dtype, want),
-                   SCAN_REASON[dtype],
-                   lambda: rwkv6_scan.rwkv6_scan(r, k, v, la, u),
-                   lambda: rwkv6_scan.rwkv6_scan_plain(r, k, v, la, u), None,
-                   nbytes, flops, main=main, state=(gs, ws),
-                   fields=rwkv6_scan.rwkv6_plan(1, RWKV_H, S, RWKV_HD, dtype,
-                                                sms).fields())
-            # ssd: dt = softplus(N - 2), A = -1; B/C one row for all heads
-            x = randn(1, S, SSD_H, SSD_HD, dtype=dtype).transpose(1, 2)
-            dt = F.softplus(randn(1, S, SSD_H, dtype=torch.float32) - 2.0) \
-                .transpose(1, 2)
-            a = -dt
-            bc = randn(1, S, 2 * SSD_DS, dtype=dtype)
-            Bm = bc[..., :SSD_DS][:, None].expand(1, SSD_H, S, SSD_DS)
-            Cm = bc[..., SSD_DS:][:, None].expand(1, SSD_H, S, SSD_DS)
-            got, gs = ssd_scan.ssd_scan(x, dt, a, Bm, Cm)
-            want, ws = ssd_scan.ssd_scan_plain(x, dt, a, Bm, Cm)
-            el = x.element_size()
-            # x, y per head in the dtype, dt and a in f32, B and C once
-            # (shared by the heads), the final state in f32
-            nbytes = (SSD_H * (2 * S * SSD_HD * el + 2 * S * 4
-                               + SSD_HD * SSD_DS * 4) + 2 * S * SSD_DS * el)
-            # the recurrence: 5 hd ds per token and head
-            flops = 5 * SSD_H * S * SSD_HD * SSD_DS
-            record("ssd_scan", f"B=1 H={SSD_H} S={S} hd={SSD_HD} "
-                   f"ds={SSD_DS}", dtype, got, want,
-                   scan_tol("ssd_scan", dtype, want), SCAN_REASON[dtype],
-                   lambda: ssd_scan.ssd_scan(x, dt, a, Bm, Cm),
-                   lambda: ssd_scan.ssd_scan_plain(x, dt, a, Bm, Cm), None,
-                   nbytes, flops, main=main, state=(gs, ws),
-                   fields=ssd_scan.ssd_plan(1, SSD_H, S, SSD_HD, SSD_DS,
-                                            dtype, sms).fields())
+            scan_cases(dtype, 1, S, main=dtype == torch.bfloat16 and S == 113)
+        scan_cases(dtype, SCAN_GROUP_B, SCAN_GROUP_S, main=False)
     return rows, summary
 
 
-def _greedy_run(cfg, params, prompt, force_ref, teacher=None):
-    """Prefill plus 8 decode steps; returns (logits per step, greedy
-    tokens). With ``teacher`` (a token list) the steps are fed those
-    tokens instead of their own argmax."""
+def _greedy_run(cfg, params, prompt, force_ref, teacher=None,
+                capacity: int = 64, steps: int = 8):
+    """Prefill into a cache of ``capacity`` plus ``steps`` decode steps;
+    returns (logits per step, greedy tokens). With ``teacher`` (a token
+    list) the steps are fed those tokens instead of their own argmax."""
     from repro_torch.models import decode_step, forward
 
-    out = forward(cfg, params, prompt, return_cache=True, cache_capacity=64,
-                  force_ref=force_ref)
+    out = forward(cfg, params, prompt, return_cache=True,
+                  cache_capacity=capacity, force_ref=force_ref)
     logits, cache = [out.logits], out.cache
     toks = [out.logits[:, -1:].argmax(-1)]
-    for i in range(8):
+    for i in range(steps):
         tok = toks[-1] if teacher is None else teacher[i]
         step = decode_step(cfg, params, tok, cache, force_ref=force_ref)
         logits.append(step.logits)
@@ -804,6 +877,8 @@ def model_phase(dev, cfg, params) -> dict:
             {"reference": ref[0], "kernel": ker[0], "plain": plain[0]})
     print(json.dumps(out))
     check(agree, f"{cfg.arch_id} model: greedy tokens differ")
+    if cfg.backbone_kind == "attn":
+        check_dense_launches(cfg, launches, f"{cfg.arch_id} model")
     if scan_family:
         check(out["scan_in_situ"]["ok"],
               f"{cfg.arch_id} model: a scan in situ is out of tolerance "
@@ -820,6 +895,58 @@ def model_phase(dev, cfg, params) -> dict:
               f"{cfg.arch_id} model: the kernel path is "
               f"{w['kernel_f32_vs_f64_ref']} from the f64 reference, over "
               f"{RWKV_FLOOR_FACTOR} x the f32 evaluations' {f32_floor}")
+    return out
+
+
+def check_dense_launches(cfg, launches: dict, where: str) -> None:
+    """A dense model's kernel path launches flash and slot decode, and the
+    FFN kernel exactly when its MLP is SwiGLU (a GELU MLP is PyTorch's
+    matmuls, as in the JAX package)."""
+    for name in ("flash_attention", "decode_attention"):
+        check(launches.get(name, 0) > 0, f"{where}: {name} not launched")
+    ffn = launches.get("fused_ffn", 0)
+    check(ffn > 0 if cfg.gated_mlp else ffn == 0,
+          f"{where}: fused_ffn launched {ffn} times, gated_mlp "
+          f"{cfg.gated_mlp}")
+
+
+def window_phase(dev, cfg, params) -> dict:
+    """starcoder2-3b's sliding window at full width in f32: a prompt of
+    SC_S tokens (past the window) prefilled into a ring of SC_WINDOW
+    slots, then SC_STEPS decode steps, so flash masks each query's window
+    and every decode step attends over a wrapped ring; the kernel path
+    against force_ref, teacher-forced on the reference's greedy tokens:
+    logits within LOGIT_TOL, tokens equal, flash once a layer and slot
+    decode once a layer a step."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    prompt = torch.as_tensor(np.arange(SC_S) % 97 + 1, device=dev)[None]
+    kw = dict(capacity=SC_WINDOW, steps=SC_STEPS)
+    ref, toks = _greedy_run(cfg, params, prompt, True, **kw)
+    reset_launches()
+    ker, _ = _greedy_run(cfg, params, prompt, False, teacher=toks, **kw)
+    launches = dict(LAUNCHES)
+    err = _max_err(ref, ker)
+    agree = all(torch.equal(a[:, -1:].argmax(-1), b[:, -1:].argmax(-1))
+                for a, b in zip(ref, ker))
+    out = {"phase": "window_check", "arch": cfg.arch_id,
+           "n_layers": cfg.n_layers, "dtype": "float32",
+           "prompt_len": SC_S, "window": cfg.sliding_window,
+           "ring_slots": SC_WINDOW, "decode_steps": SC_STEPS,
+           "logits_max_abs_err": err,
+           "logits_max_abs": max(float(x.abs().max()) for x in ref),
+           "tol": LOGIT_TOL, "tol_reason": LOGIT_REASON,
+           "greedy_tokens_agree": agree, "launches": launches}
+    print(json.dumps(out))
+    check(agree, f"{cfg.arch_id} window check: greedy tokens differ")
+    check(err <= LOGIT_TOL,
+          f"{cfg.arch_id} window check: logits err {err} > {LOGIT_TOL}")
+    check(launches.get("flash_attention", 0) == cfg.n_layers,
+          f"window check: flash launched {launches.get('flash_attention')}")
+    check(launches.get("decode_attention", 0) == cfg.n_layers * SC_STEPS,
+          f"window check: slot decode launched "
+          f"{launches.get('decode_attention')} times")
+    check(launches.get("fused_ffn", 0) == 0, "window check: FFN launched")
     return out
 
 
@@ -1047,6 +1174,8 @@ def serve_phase(dev, arch: str, kernels: tuple, mode: str = "virtual",
     for name in kernels:
         check(launches.get(name, 0) > 0,
               f"{name} was launched 0 times on the {arch} main path")
+    if cfg.backbone_kind == "attn":
+        check_dense_launches(cfg, launches, f"{arch} serve")
     check(graph["captures"] == 1 and graph["host_reads_per_chunk"] == 1,
           f"{arch} serve: decode graph {graph}")
     for name, n in decode_launches_expected(cfg, graph["steps"]).items():
@@ -1192,9 +1321,31 @@ def profile_steps(run, n_calls: int, steps: int) -> dict:
             "top_device_ms_per_step": {k[:80]: v for k, v in top}}
 
 
-def continuous_serve_phase(dev, cfg, params) -> dict:
+def _recording_groups(engine) -> list:
+    """The engine's admission groups, as lists of request ids, recorded
+    as it admits them."""
+    groups = []
+    admit_group = engine._admit_group
+
+    def record(group):
+        groups.append([req[0] for _, req in group])
+        admit_group(group)
+    engine._admit_group = record
+    return groups
+
+
+def continuous_serve_phase(dev, cfg, params, paged: bool = True) -> dict:
     """The continuous path: allocator -> scheduler -> LLMServer(batch_size
-    8) -> paged ContinuousBatchingEngine, on the serve phase's stream."""
+    8) -> ContinuousBatchingEngine (8 slots, capacity 2048, chunk 16; the
+    paged pool in blocks of 16, or slot rows, a window's ring holding
+    min(2048, window)), on the serve phase's stream, its chunks replaying
+    the captured step. Exact budgets, one capture, one host read a chunk,
+    admission groups of one prompt length where the backbone cannot pad,
+    and the launches the groups and steps imply: a dense model's flash
+    once a layer a group and its decode kernel (paged or slot) once a
+    layer a replayed step; the family's scan once a layer a group; the
+    hybrid's flash once a shared-block application a group and slot
+    decode once an application a step."""
     from repro_torch.core import paper_problem
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.obs import graph_hooks
@@ -1203,13 +1354,15 @@ def continuous_serve_phase(dev, cfg, params) -> dict:
                                      ServerConfig)
 
     engine = ContinuousBatchingEngine(cfg, params, max_slots=8,
-                                      capacity=2048, chunk=16, paged=True,
+                                      capacity=2048, chunk=16, paged=paged,
                                       block_size=16)
+    label = engine._graphs.label
     graph_hooks.reset()
     engine.admit(-1, np.ones(16, np.int64), 4, 0)          # warm, capture
     while engine.n_active:
         engine.step_chunk()
-    warm_captures = graph_hooks.capture_counts().get("continuous.paged", 0)
+    warm_captures = graph_hooks.capture_counts().get(label, 0)
+    groups = _recording_groups(engine)
     prob = paper_problem(lam=0.1, alpha=30.0)
     stream = generate_stream(prob.tasks, 0.1, 8, seed=0)
     srv = LLMServer(prob, ServerConfig(generate_tokens=True, batch_size=8),
@@ -1221,33 +1374,54 @@ def continuous_serve_phase(dev, cfg, params) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-    graph = graph_stats("continuous.paged", engine.chunk, warm_captures)
+    graph = graph_stats(label, engine.chunk, warm_captures)
     extra = srv.cfg.max_extra_tokens
     for c in srv.completed:
         check(c.n_tokens == c.budget + extra,
               f"request {c.rid}: {c.n_tokens} tokens for budget "
               f"{c.budget} + {extra}")
     check(rep.n == 8, f"served {rep.n} of 8 requests")
+    lengths = {q.qid: q.prompt_len for q in stream.queries}
+    if not engine._can_pad_batch():
+        check(all(len({lengths[r] for r in g}) == 1 for g in groups),
+              f"{cfg.arch_id}: an admission group mixes prompt lengths "
+              f"{groups}")
+    n_groups, steps = len(groups), graph["steps"]
+    if cfg.has_shared_attn:
+        g = cfg.n_layers // cfg.attn_every
+        expected = {"ssd_scan": cfg.n_layers * n_groups,
+                    "flash_attention": g * n_groups,
+                    "decode_attention": g * steps}
+    elif cfg.backbone_kind == "rwkv6":
+        expected = {"rwkv6_scan": cfg.n_layers * n_groups}
+    else:
+        decode = "paged_decode_attention" if paged else "decode_attention"
+        expected = {"flash_attention": cfg.n_layers * n_groups,
+                    decode: cfg.n_layers * steps}
+    kv = engine.cache.get("layers", engine.cache.get("shared"))
     out = {"phase": "continuous_serve", "arch": cfg.arch_id,
-           "n_layers": cfg.n_layers, "dtype": cfg.dtype, "engine": "ContinuousBatchingEngine("
-           "paged=True, max_slots=8, capacity=2048, block_size=16, "
-           "chunk=16)", "batch_size": 8,
+           "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "engine": f"ContinuousBatchingEngine(paged={paged}, max_slots=8, "
+                     "capacity=2048, chunk=16"
+                     + (", block_size=16)" if paged else ")"),
+           "batch_size": 8,
+           "kv_positions_a_row": getattr(kv, "capacity", None),
            "report": dataclasses.asdict(rep),
            "budgets_enforced_exactly": True, "wall_s": wall,
-           "decode_steps": graph["steps"], "graph": graph,
-           "tokens_per_s": rep.tokens_generated / wall,
-           "launches": launches}
+           "admission_groups": groups, "decode_steps": steps,
+           "graph": graph, "tokens_per_s": rep.tokens_generated / wall,
+           "launches": launches, "launches_expected": expected}
     print(json.dumps(out))
-    for name in ("flash_attention", "fused_ffn", "paged_decode_attention"):
-        check(launches.get(name, 0) > 0,
-              f"{name} was launched 0 times on the continuous path")
     check(graph["captures"] == 1 and graph["host_reads_per_chunk"] == 1,
-          f"continuous serve: decode graph {graph}")
-    check(launches.get("paged_decode_attention", 0)
-          == cfg.n_layers * graph["steps"],
-          f"continuous serve: paged decode launched "
-          f"{launches.get('paged_decode_attention', 0)} times in "
-          f"{graph['steps']} replayed steps of {cfg.n_layers} layers")
+          f"{cfg.arch_id} continuous serve: decode graph {graph}")
+    for name, n in expected.items():
+        check(launches.get(name, 0) == n,
+              f"{cfg.arch_id} continuous serve: {name} launched "
+              f"{launches.get(name, 0)} times, expected {n}")
+    if cfg.backbone_kind == "attn" or cfg.has_shared_attn:
+        check((launches.get("fused_ffn", 0) > 0) == cfg.gated_mlp,
+              f"{cfg.arch_id} continuous serve: fused_ffn launched "
+              f"{launches.get('fused_ffn', 0)} times")
     out["budgets"] = {c.rid: c.budget for c in srv.completed}
     out["stream"] = stream
     return out
@@ -1545,6 +1719,116 @@ def hooks_serve_phase(dev, cfg, params) -> dict:
     return out
 
 
+def recurrent_drain_phase(dev, arch: str) -> dict:
+    """Rows of a recurrent or hybrid model admitted four at a time: the
+    serve stream's 8 prompts (each shifted by its query id, so no two rows
+    are equal) cut to two lengths, the four shortest to the shortest
+    length and the rest to the fifth shortest, so each admission group
+    runs its family's scan at B = 4. In f32 at a cut depth (rwkv6 at 4 of
+    24 layers, the hybrid at one shared-block group plus its remainder),
+    on a slot engine of 8 rows whose step runs eagerly so each step's
+    logits can be read: every row's first 8 decode logits within
+    LOGIT_TOL of the same prompt served alone through DecodeEngine's
+    per-token loop, and all its tokens equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import paper_problem
+    from repro_torch.kernels import LAUNCHES, ops, reset_launches
+    from repro_torch.models import init_params
+    from repro_torch.obs import graph_hooks
+    from repro_torch.queueing_sim import generate_stream
+    from repro_torch.serving import (ContinuousBatchingEngine, DecodeEngine,
+                                     continuous, engine)
+
+    cfg = get_config(arch)
+    n_layers = (4 if cfg.backbone_kind == "rwkv6"
+                else cfg.attn_every + cfg.n_layers % cfg.attn_every)
+    cfg = dataclasses.replace(cfg, dtype="float32", n_layers=n_layers)
+    params = init_params(cfg, seed=0, device=dev)
+    queries = sorted(generate_stream(paper_problem(lam=0.1, alpha=30.0)
+                                     .tasks, 0.1, 8, seed=0).queries,
+                     key=lambda q: q.prompt_len)
+    cut = [queries[0].prompt_len] * 4 + [queries[4].prompt_len] * 4
+    reqs = [(q.qid, (np.arange(n) + q.qid) % 97 + 1, DRAIN_BUDGET, 0)
+            for q, n in zip(queries, cut)]
+    scan = "rwkv6_scan" if cfg.backbone_kind == "rwkv6" else "ssd_scan"
+    scan_fn = getattr(ops, scan)
+    scan_batches = []
+
+    def counted_scan(*args, **kwargs):
+        scan_batches.append(args[0].shape[0])
+        return scan_fn(*args, **kwargs)
+
+    def recorder(module, steps):
+        step_fn = module.decode_step
+
+        def recorded(*args, **kwargs):
+            res = step_fn(*args, **kwargs)
+            steps.append(res.logits[:, 0].clone())
+            return res
+        return step_fn, recorded
+
+    alone = {}
+    eng1 = DecodeEngine(cfg, params, cache_capacity=256, chunk=16)
+    for rid, prompt, budget, _ in reqs:
+        steps = []
+        orig, engine.decode_step = recorder(engine, steps)
+        try:
+            res = eng1.generate(prompt[None].astype(np.int32), [budget],
+                                max_extra_tokens=0, use_scan=False)
+        finally:
+            engine.decode_step = orig
+        alone[rid] = (res["tokens"][0].tolist(), steps)
+    del eng1
+    cont = ContinuousBatchingEngine(cfg, params, max_slots=8, capacity=256,
+                                    chunk=16)
+    cont._graphs = graph_hooks.GraphCache("eager", "cpu")
+    groups = _recording_groups(cont)
+    steps = []
+    orig, continuous.decode_step = recorder(continuous, steps)
+    setattr(ops, scan, counted_scan)
+    reset_launches()
+    try:
+        check(all(cont.admit_many(reqs)), f"{arch} drain: not admitted")
+        launches_admit = dict(LAUNCHES)
+        slot_of = {s.rid: i for i, s in enumerate(cont.slots)}
+        done = {}
+        while cont.n_active:
+            for s in cont.step_chunk():
+                done[s.rid] = s.tokens
+    finally:
+        continuous.decode_step = orig
+        setattr(ops, scan, scan_fn)
+    launches = dict(LAUNCHES)
+    rows = []
+    for rid, prompt, _, _ in reqs:
+        want_toks, want_logits = alone[rid]
+        err = max(float((steps[i][slot_of[rid]] - want_logits[i][0])
+                        .abs().max()) for i in range(8))
+        rows.append({"rid": rid, "prompt_len": len(prompt),
+                     "slot": slot_of[rid], "logits_max_abs_err": err,
+                     "tokens_equal": done[rid] == want_toks})
+    out = {"phase": "recurrent_drain", "arch": arch, "n_layers": n_layers,
+           "dtype": "float32", "budget": DRAIN_BUDGET,
+           "admission_groups": groups, "scan_batch_sizes": scan_batches,
+           "rows": rows, "tol": LOGIT_TOL,
+           "tol_reason": "each row's decode logits against the same prompt "
+                         "served alone; " + LOGIT_REASON,
+           "launches_at_admission": launches_admit, "launches": launches}
+    print(json.dumps(out))
+    check(len(groups) == 2 and all(len(g) == 4 for g in groups),
+          f"{arch} drain: admission groups {groups}")
+    check(scan_batches == [SCAN_GROUP_B] * (2 * n_layers),
+          f"{arch} drain: scans at batch sizes {scan_batches}")
+    check(launches_admit.get(scan, 0) == 2 * n_layers,
+          f"{arch} drain: {scan} launched {launches_admit.get(scan, 0)} "
+          f"times at admission")
+    for r in rows:
+        check(r["tokens_equal"], f"{arch} drain: row {r} tokens differ")
+        check(r["logits_max_abs_err"] <= LOGIT_TOL,
+              f"{arch} drain: row {r} logits off")
+    return out
+
+
 def step_latency_points(dev, cfg, params) -> dict:
     """The continuous engine's replayed decode step at occupancies 1, 2, 4
     and 8: for each b a paged engine of b slots, all live (prompts of 96
@@ -1679,6 +1963,14 @@ def main() -> int:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
 
+    def slot_serve(arch):
+        """``arch`` in bf16 at full width through the slot continuous
+        engine; its launches."""
+        cfg = get_config(arch)
+        params = init_params(cfg, seed=0, device=dev)
+        return continuous_serve_phase(dev, cfg, params,
+                                      paged=False)["launches"]
+
     cfg32, params32 = f32_model("qwen3-0.6b")
     model_phase(dev, cfg32, params32)
     paged_model_phase(dev, cfg32, params32)
@@ -1718,6 +2010,28 @@ def main() -> int:
         free()
         by_path[f"{arch} serve"] = serve_phase(dev, arch, kernels)["launches"]
         free()
+        by_path[f"{arch} continuous serve"] = slot_serve(arch)
+        free()
+        by_path[f"{arch} recurrent drain"] = recurrent_drain_phase(
+            dev, arch)["launches"]
+        free()
+    # the other dense ids: LayerNorm without parameters (olmo-1b),
+    # LayerNorm (stablelm-3b), LayerNorm, GELU MLP and a sliding window
+    # (starcoder2-3b, also through the continuous engine)
+    for arch in ("olmo-1b", "stablelm-3b", "starcoder2-3b"):
+        cfg32, params32 = f32_model(arch)
+        model_phase(dev, cfg32, params32)
+        if cfg32.sliding_window is not None:
+            by_path[f"{arch} window check"] = window_phase(
+                dev, cfg32, params32)["launches"]
+        del params32
+        free()
+        kernels = ("flash_attention", "decode_attention") + (
+            ("fused_ffn",) if cfg32.gated_mlp else ())
+        by_path[f"{arch} serve"] = serve_phase(dev, arch, kernels)["launches"]
+        free()
+    by_path["starcoder2-3b continuous serve"] = slot_serve("starcoder2-3b")
+    free()
     cfg32, params32 = f32_model("qwen3-8b", n_layers=QWEN3_8B_F32_LAYERS)
     model_phase(dev, cfg32, params32)
     paged_model_phase(dev, cfg32, params32)

@@ -1,20 +1,24 @@
 """Architecture registry of the port. Select with ``--arch <id>``.
 
-The dense ``qwen3-0.6b`` and ``qwen3-8b`` (the paper's model), the
-recurrent ``rwkv6-1.6b`` and the hybrid ``zamba2-7b`` are ported; the
-other ids of ``repro.configs`` raise ``KeyError`` until their model
-families come across.
+Every non-MoE text model of ``repro.configs`` is ported: the dense
+``qwen3-0.6b``, ``qwen3-8b`` (the paper's model), ``olmo-1b`` (LayerNorm
+without parameters), ``stablelm-3b`` (LayerNorm) and ``starcoder2-3b``
+(LayerNorm, GELU MLP, a sliding window of 4096), the recurrent
+``rwkv6-1.6b`` and the hybrid ``zamba2-7b``; both engines serve them all.
+The MoE, VLM and audio ids raise ``KeyError`` until their families come
+across.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ("qwen3-0.6b", "qwen3-8b", "rwkv6-1.6b", "zamba2-7b")
+ARCH_IDS = ("qwen3-0.6b", "qwen3-8b", "olmo-1b", "stablelm-3b",
+            "starcoder2-3b", "rwkv6-1.6b", "zamba2-7b")
 
 #: ids the JAX package registers that the port does not have yet
 NOT_YET_PORTED = (
     "musicgen-medium", "llava-next-mistral-7b", "deepseek-moe-16b",
-    "granite-moe-3b-a800m", "stablelm-3b", "olmo-1b", "starcoder2-3b",
+    "granite-moe-3b-a800m",
 )
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}

@@ -10,7 +10,7 @@ decode step (``serving/engine.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --real-engine --queries 8
     PYTHONPATH=src python -m repro_torch.launch.serve --real-engine \\
-        --arch qwen3-8b --queries 8     # or --arch rwkv6-1.6b, zamba2-7b
+        --arch qwen3-8b --queries 8     # or any id of configs.ARCH_IDS
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
         --real-engine --queries 3
 """

@@ -22,8 +22,14 @@ pools beside its int8 codes, both quantised symmetrically by absmax per
 scales in place, dequantises the layer (:func:`_dequantize`) and attends
 over it with the slot decode kernel; an int8 paged pool is gathered
 through its block table first, so it never runs the paged kernel. No
-kernel reads int8, as in the JAX package. Sliding-window ring buffers are
-not ported yet.
+kernel reads int8, as in the JAX package.
+
+Sliding window (``ModelConfig.sliding_window``): prefill masks keys more
+than ``window - 1`` positions back (the flash kernel's ``window``), and the
+slot cache, full precision or int8, is a ring of ``min(capacity,
+window)`` slots: position ``p`` lives at slot ``p % C``
+(:func:`seed_slots`, :func:`_decode_valid`). The paged pool refuses a
+window, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -199,9 +205,13 @@ def _sdpa(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor,
     return torch.einsum("bkgst,btkh->bskgh", w, v).reshape(B, S, nh, hd)
 
 
-def causal_mask(q_pos: Tensor, kv_pos: Tensor) -> Tensor:
-    """[1, S, T] bool: kv visible to query."""
-    return (kv_pos[None, :] <= q_pos[:, None])[None]
+def causal_mask(cfg: ModelConfig, q_pos: Tensor, kv_pos: Tensor) -> Tensor:
+    """[1, S, T] bool: kv visible to query (causal, and inside the sliding
+    window where the config has one)."""
+    m = kv_pos[None, :] <= q_pos[:, None]
+    if cfg.sliding_window is not None:
+        m &= kv_pos[None, :] > q_pos[:, None] - cfg.sliding_window
+    return m[None]
 
 
 def attn_forward(cfg: ModelConfig, p: dict, x: Tensor,
@@ -213,20 +223,39 @@ def attn_forward(cfg: ModelConfig, p: dict, x: Tensor,
         positions = torch.arange(S, device=x.device)
     q, k, v = _project_qkv(cfg, p, x, positions)
     if force_ref:
-        out = _sdpa(cfg, q, k, v, causal_mask(positions, positions))
+        out = _sdpa(cfg, q, k, v, causal_mask(cfg, positions, positions))
     else:
-        out = kops.flash_attention(q, k, v, causal=True)
+        out = kops.flash_attention(q, k, v, causal=True,
+                                   window=cfg.sliding_window)
     y = torch.matmul(out.reshape(B, S, -1), p["wo"])
     return y, (k, v)
+
+
+def seed_slots(cfg: ModelConfig, S: int, C: int) -> tuple:
+    """Where a prefill of ``S`` positions lands in a decode cache of ``C``
+    slots: (positions kept, their slots), int64 index tensors on the CPU.
+    Full attention keeps all ``S`` at slots ``[0, S)`` and raises past the
+    capacity; a ring keeps the last ``C`` at slots ``p % C``, as the JAX
+    package's ``cache_from_prefill`` does."""
+    if S <= C:
+        kept = torch.arange(S)
+        return kept, kept
+    if cfg.sliding_window is None:
+        raise ValueError(f"prompt length {S} exceeds cache capacity {C}")
+    kept = torch.arange(S - C, S)
+    return kept, kept % C
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
                device, dtype=None, n_layers: Optional[int] = None):
     """Zeroed layer-stacked dense cache at position 0, with ``n_layers``
     layers (default ``cfg.n_layers``; the hybrid's shared block has one per
-    application): a :class:`QuantKVCache` when the config's KV cache is
-    int8 (``dtype`` is then ignored), else a :class:`KVCache`."""
+    application) and ``capacity`` slots, a sliding window's ring capped at
+    the window: a :class:`QuantKVCache` when the config's KV cache is int8
+    (``dtype`` is then ignored), else a :class:`KVCache`."""
     L = cfg.n_layers if n_layers is None else n_layers
+    if cfg.sliding_window is not None:
+        capacity = min(capacity, cfg.sliding_window)
     shape = (L, batch, capacity, cfg.n_kv_heads, cfg.hd)
     if cfg.kv_cache_dtype == "int8":
         return QuantKVCache(
@@ -246,20 +275,21 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
 def cache_from_prefill(cfg: ModelConfig, k: Tensor, v: Tensor,
                        capacity: int):
     """Seed a decode cache with prefill K/V, stacked ``[L, B, S, nkv, hd]``:
-    slots ``[0, S)`` hold the prompt, the rest are zero. An int8 cache
-    holds the prompt's codes and scales, and past it what the JAX package's
-    quantised zero padding holds: codes 0, scales 1e-8."""
+    the positions :func:`seed_slots` keeps at their slots (the whole prompt
+    at ``[0, S)``, or a ring's last ``C`` at ``p % C``), the rest zero. An
+    int8 cache holds the kept positions' codes and scales, and elsewhere
+    what the JAX package's quantised zero padding holds: codes 0, scales
+    1e-8."""
     L, B, S = k.shape[:3]
-    if S > capacity:
-        raise ValueError(f"prompt length {S} exceeds cache capacity "
-                         f"{capacity}")
     cache = init_cache(cfg, B, capacity, k.device, k.dtype, n_layers=L)
+    kept, slots = (t.to(k.device) for t in seed_slots(cfg, S,
+                                                      cache.capacity))
     quant = isinstance(cache, QuantKVCache)
     if quant:
         cache.k_scale.fill_(1e-8)
         cache.v_scale.fill_(1e-8)
-    for name, rows in kv_fields(k, v, quant):
-        getattr(cache, name)[:, :, :S] = rows
+    for name, rows in kv_fields(k[:, :, kept], v[:, :, kept], quant):
+        getattr(cache, name)[:, :, slots] = rows
     cache.length.fill_(S)
     return cache
 
@@ -271,7 +301,9 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
     and zero positions. ``n_bt`` is the block-table width, the per-slot
     logical capacity in blocks. With an int8 KV cache the pools are int8
     and f32 scale pools of the same blocks (trash block included) come
-    with them."""
+    with them. A sliding window raises ``ValueError``: blocks are addressed
+    by position, a ring by position modulo its capacity."""
+    cfg.validate(paged=True)
     shape = (cfg.n_layers, n_blocks + 1, block_size, cfg.n_kv_heads, cfg.hd)
     quant = cfg.kv_cache_dtype == "int8"
     dtype = torch.int8 if quant else (dtype or cfg.tdtype)
@@ -289,14 +321,21 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
         **scales)
 
 
-def _decode_valid(pos: Tensor, C: int, device) -> Tensor:
-    """[1 or B, C] bool mask over cache slots: slots <= pos are filled
-    (``pos`` a 0-d shared position, or a ``[B]`` tensor of per-row
-    positions)."""
-    slots = torch.arange(C, device=device)
-    if pos.dim() == 0:
-        return (slots <= pos)[None]
-    return slots[None] <= pos[:, None]
+def _decode_valid(pos: Tensor, C: int, device,
+                  window: Optional[int] = None) -> Tensor:
+    """[1 or B, C] bool mask over cache slots (``pos`` a 0-d shared
+    position, or a ``[B]`` tensor of per-row positions). Full attention:
+    slots <= pos are filled. A ring (``window``): each slot's global
+    position is rebuilt from the new token's slot ``pos % C``, and the
+    slots holding positions in ``(pos - window, pos]`` are valid, as in
+    the JAX package's ``_decode_valid``."""
+    slots = torch.arange(C, device=device)[None]
+    pos = pos.reshape(-1, 1)
+    if window is None:
+        return slots <= pos
+    slot = pos % C
+    kv_pos = pos - slot + slots - torch.where(slots <= slot, 0, C)
+    return (kv_pos >= 0) & (kv_pos > pos - window)
 
 
 def _decode_attend(cfg: ModelConfig, p: dict, q: Tensor, k: Tensor,
@@ -331,7 +370,8 @@ def attn_decode_stacked(cfg: ModelConfig, p: dict, x: Tensor, kv,
     capacity writes the last slot. Its per-row scatter drops a row whose
     position is past the capacity (a retired row riding a chunk); here that
     row's slot index is clamped and its old value written back (codes and
-    scales alike). An int8 cache gets the new token's codes and scales,
+    scales alike). A ring (sliding window) writes slot ``pos % C``, never
+    past its capacity. An int8 cache gets the new token's codes and scales,
     and the layer is dequantised to the activation dtype before the
     attend. No device-to-host read happens here (the slot is an index
     tensor, never a host int), so the step can be captured in a CUDA
@@ -341,25 +381,27 @@ def attn_decode_stacked(cfg: ModelConfig, p: dict, x: Tensor, kv,
     quant = isinstance(kv, QuantKVCache)
     pairs = [(getattr(kv, name), new)
              for name, new in kv_fields(k_new, v_new, quant)]
-    C = kv.capacity
-    slot = pos.clamp(max=C - 1)
+    C, window = kv.capacity, cfg.sliding_window
+    slot = pos.clamp(max=C - 1) if window is None else pos % C
     if pos.dim() == 0:
         idx = slot.reshape(1).long()
         for buf, new in pairs:
             buf[layer].index_copy_(1, idx, new)
     else:
         rows = torch.arange(x.shape[0], device=x.device)
-        past = pos >= C
         for buf, new in pairs:
-            old = buf[layer, rows, slot]
-            keep = past.reshape((-1,) + (1,) * (old.dim() - 1))
-            buf[layer, rows, slot] = torch.where(keep, old, new[:, 0])
+            new = new[:, 0]
+            if window is None:       # a row past the capacity keeps its own
+                old = buf[layer, rows, slot]
+                past = (pos >= C).reshape((-1,) + (1,) * (old.dim() - 1))
+                new = torch.where(past, old, new)
+            buf[layer, rows, slot] = new
     if quant:
         k = _dequantize(kv.k[layer], kv.k_scale[layer], x.dtype)
         v = _dequantize(kv.v[layer], kv.v_scale[layer], x.dtype)
     else:
         k, v = kv.k[layer], kv.v[layer]
-    valid = _decode_valid(pos, C, x.device)
+    valid = _decode_valid(pos, C, x.device, window)
     return _decode_attend(cfg, p, q, k, v, valid, force_ref)
 
 

@@ -2,7 +2,8 @@
 
 The fields mirror ``repro.models.config.ModelConfig`` for the three
 families that are ported: the dense GQA transformer (``dense``: RMS norm,
-SwiGLU MLP, full attention), the recurrent stack (``ssm``: RWKV6 blocks
+LayerNorm or OLMo's LayerNorm without parameters, a SwiGLU or GELU MLP,
+full or sliding-window attention), the recurrent stack (``ssm``: RWKV6 blocks
 when the config carries an ``RWKVConfig``, Mamba2 otherwise) and the hybrid (``hybrid``: a
 Mamba2 backbone plus ONE weight-shared attention+MLP block applied after
 every ``attn_every`` Mamba2 layers, Zamba2-style). The JAX package's
@@ -26,6 +27,9 @@ from ..compat import torch_dtype
 PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 #: decode KV cache storage types
 KV_CACHE_DTYPES = ("model", "int8")
+#: normalisation layers: RMS norm, LayerNorm with scale and bias, and
+#: OLMo's LayerNorm without learned parameters
+NORMS = ("rmsnorm", "layernorm", "nonparametric_ln")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +61,12 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 10_000.0
     attn_every: int = 1                     # hybrid: shared attn every k
+    # attention over the last `sliding_window` positions only (None =
+    # full attention); the decode cache is then a ring of that many slots
+    sliding_window: Optional[int] = None
+    norm: str = "rmsnorm"                   # one of NORMS
     tie_embeddings: bool = False
+    gated_mlp: bool = True                  # SwiGLU; False: GELU (up, down)
     ssm: Optional[SSMConfig] = None         # set for a Mamba2 backbone
     rwkv: Optional[RWKVConfig] = None       # set for an RWKV6 backbone
     dtype: str = "bfloat16"
@@ -102,7 +111,10 @@ class ModelConfig:
     def has_shared_attn(self) -> bool:
         return self.family == "hybrid"
 
-    def validate(self) -> None:
+    def validate(self, paged: bool = False) -> None:
+        """Raise for a config the port cannot run; ``paged``: also for one
+        the paged KV pool cannot hold (a sliding window keeps a ring of
+        slots, which blocks do not address)."""
         if self.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"family {self.family!r} is not ported; the port runs "
@@ -120,12 +132,20 @@ class ModelConfig:
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r} not in "
                              f"{KV_CACHE_DTYPES}")
+        if self.norm not in NORMS:
+            raise ValueError(f"norm {self.norm!r} not in {NORMS}")
+        if self.sliding_window is not None and self.sliding_window < 1:
+            raise ValueError("sliding_window must be >= 1")
+        if paged and self.sliding_window is not None:
+            raise ValueError("paged KV requires full attention; a sliding "
+                             "window keeps the dense ring cache")
 
 
 def reduced(cfg: ModelConfig, n_layers: int = 2,
             d_model: int = 256) -> ModelConfig:
     """Small variant of the same family for CPU tests (2 layers, d_model 256,
-    f32), the same reduction as ``repro.models.config.reduced``."""
+    f32, a sliding window cut to 64), the same reduction as
+    ``repro.models.config.reduced``."""
     scale = d_model / cfg.d_model
     n_heads = max(1, min(cfg.n_heads, 4))
     n_kv = max(1, min(cfg.n_kv_heads, n_heads))
@@ -145,6 +165,7 @@ def reduced(cfg: ModelConfig, n_layers: int = 2,
         head_dim=d_model // n_heads,
         d_ff=max(64, int(cfg.d_ff * scale)),
         vocab_size=min(cfg.vocab_size, 512),
+        sliding_window=(64 if cfg.sliding_window else None),
         ssm=ssm, rwkv=rwkv,
         dtype="float32",
     )

@@ -1,4 +1,5 @@
-"""Shared layers: RMS norm, embedding, RoPE, SwiGLU MLP, lm_head (tied or
+"""Shared layers: the norms (RMS norm, LayerNorm, OLMo's LayerNorm without
+parameters), embedding, RoPE, the SwiGLU and GELU MLPs, lm_head (tied or
 untied)."""
 from __future__ import annotations
 
@@ -21,14 +22,31 @@ def _he(gen: torch.Generator, shape, dtype, fan_in: int) -> Tensor:
 
 # ----------------------------------------------------------------- norms
 def init_norm(cfg: ModelConfig, lead: tuple, device) -> dict:
-    return {"scale": torch.ones(lead + (cfg.d_model,), dtype=cfg.tdtype,
-                                device=device)}
+    """``scale`` (RMS norm), ``scale`` and ``bias`` (LayerNorm), or nothing
+    (OLMo's non-parametric LayerNorm), each leaf stacked on ``lead``."""
+    if cfg.norm == "nonparametric_ln":
+        return {}
+
+    def full(value):
+        return torch.full(lead + (cfg.d_model,), value, dtype=cfg.tdtype,
+                          device=device)
+    if cfg.norm == "layernorm":
+        return {"scale": full(1.0), "bias": full(0.0)}
+    return {"scale": full(1.0)}
 
 
 def apply_norm(cfg: ModelConfig, p: dict, x: Tensor) -> Tensor:
+    """The config's norm over the last axis, in f32 with eps 1e-6."""
     xf = acc(x)
-    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + 1e-6)
-    return (y * acc(p["scale"])).to(x.dtype)
+    if cfg.norm == "rmsnorm":
+        y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True)
+                             + 1e-6)
+        return (y * acc(p["scale"])).to(x.dtype)
+    xc = xf - torch.mean(xf, dim=-1, keepdim=True)
+    y = xc * torch.rsqrt(torch.mean(xc * xc, dim=-1, keepdim=True) + 1e-6)
+    if cfg.norm == "layernorm":
+        y = y * acc(p["scale"]) + acc(p["bias"])
+    return y.to(x.dtype)
 
 
 # ------------------------------------------------------------- embedding
@@ -80,17 +98,27 @@ def apply_rope(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
 
 # ------------------------------------------------------------------- MLP
 def init_mlp(cfg: ModelConfig, gen: torch.Generator, lead: tuple) -> dict:
+    """``up`` and ``down``, and ``gate`` for the SwiGLU MLP."""
     d, f = cfg.d_model, cfg.d_ff
-    return {"up": _he(gen, lead + (d, f), cfg.tdtype, fan_in=d),
-            "down": _he(gen, lead + (f, d), cfg.tdtype, fan_in=f),
-            "gate": _he(gen, lead + (d, f), cfg.tdtype, fan_in=d)}
+    p = {"up": _he(gen, lead + (d, f), cfg.tdtype, fan_in=d),
+         "down": _he(gen, lead + (f, d), cfg.tdtype, fan_in=f)}
+    if cfg.gated_mlp:
+        p["gate"] = _he(gen, lead + (d, f), cfg.tdtype, fan_in=d)
+    return p
 
 
 def apply_mlp(cfg: ModelConfig, p: dict, x: Tensor,
               force_ref: bool = False) -> Tensor:
-    """SwiGLU MLP. Goes through the fused FFN kernel (its plain version on
-    the CPU) at every shape; ``force_ref`` takes the JAX package's unfused
-    einsum path instead."""
+    """SwiGLU MLP through the fused FFN kernel (its plain version on the
+    CPU) at every shape; ``force_ref`` takes the JAX package's unfused
+    einsum path instead. The GELU MLP (``gated_mlp=False``: up, GELU in
+    f32 with the tanh approximation that ``jax.nn.gelu`` defaults to,
+    down) is PyTorch's matmuls in both cases, as in the JAX package, whose
+    fused kernel is SwiGLU only."""
+    if not cfg.gated_mlp:
+        up = torch.matmul(x, p["up"])
+        h = torch.nn.functional.gelu(acc(up), approximate="tanh")
+        return torch.matmul(h.to(x.dtype), p["down"])
     if force_ref:
         up = torch.matmul(x, p["up"])
         gate = torch.matmul(x, p["gate"])

@@ -6,7 +6,9 @@ a_t = exp(A dt_t), A < 0):
     S_t = a_t S_{t-1} + dt_t x_t B_t^T        S in R^{hd x ds}
     y_t = S_t C_t + D x_t
 
-Prefill runs the scan through ``kernels.ops.ssd_scan`` (the Hopper kernel
+Prefill (any batch: the continuous engine admits groups of equal-length
+prompts, one final state and conv tail per row) runs the scan through
+``kernels.ops.ssd_scan`` (the Hopper kernel
 on a CUDA device, its plain version on the CPU, the sequential oracle
 under ``force_ref``) where the JAX package ran its own jnp chunked scan;
 both compute the same function. ``D x`` stays outside the scan. Decode is

@@ -7,7 +7,9 @@ channels, state S in R^{hd x hd}):
     y_t = r_t . (S_{t-1} + diag(u) k_t (x) v_t)
 
 with the data-dependent decay w_t = exp(-exp(w0 + LoRA(x_t))) in (0, 1)
-and the bonus u for the current token. Prefill runs the wkv scan through
+and the bonus u for the current token. Prefill (any batch: the
+continuous engine admits groups of equal-length prompts, one final state
+per row) runs the wkv scan through
 ``kernels.ops.rwkv6_scan`` (the Hopper kernel on a CUDA device, its plain
 version on the CPU, the sequential oracle under ``force_ref``) where the
 JAX package ran its own jnp chunked scan; both compute the same function.

@@ -1,7 +1,8 @@
 """Model assembly for the ported families.
 
-Block kinds: ``"attn"`` (the dense decoder), ``"rwkv6"`` (the recurrent
-``ssm`` family) and ``"mamba2"`` (the hybrid's backbone). The hybrid
+Block kinds: ``"attn"`` (the dense decoder, with the config's norm, MLP
+and attention window), ``"rwkv6"`` (the recurrent ``ssm`` family) and
+``"mamba2"`` (the hybrid's backbone). The hybrid
 (Zamba2-style) stack runs ``g = n_layers // attn_every`` groups of
 ``attn_every`` Mamba2 layers, each followed by ONE application of a
 weight-shared attention+MLP block (``params["shared_attn"]``, unstacked),

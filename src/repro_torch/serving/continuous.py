@@ -64,12 +64,21 @@ returns pool blocks on the host between replays. An external
 reservation only shrinks what admission sees (back-pressure); the device
 block table is copied only when a slot's blocks changed.
 
-The engine runs the dense attention backbone only, for which
-right-padded batched admission is exact and every admission batches
-freely; it raises ``NotImplementedError`` for the recurrent and hybrid
-families, which ``DecodeEngine`` serves. The JAX package's recurrent
-admission (equal-length groups) and its windowed and capacity-dispatch
-MoE branches are not ported (``ROADMAP.md``).
+Padding contract (as the JAX package's): right-padded batched admission
+is exact for the full-attention dense backbone (causal masking leaves the
+last real token's logits unchanged, and decode overwrites a pad's K/V
+before the per-row mask exposes it), so there every admission is one
+group. Recurrent (RWKV6) and hybrid (Mamba2 + shared attention) rows, and
+sliding-window rows, fold pads into carried state or into a ring, so
+their admissions group by equal prompt length, in the JAX engine's order,
+with no pads: one prefill per group (the scan kernels at B = the group's
+rows). The insert overwrites every state leaf of each new row (the conv
+tails, shift vectors and wkv / SSD states, the shared block's K/V and its
+per-row position), so a refilled slot keeps nothing of the request it
+held. The recurrent states carry no position, and the decode step copies
+them in place, so one captured step serves every admission. These
+backbones refuse the paged pool (``ValueError``), as the JAX package's
+do; the capacity-dispatch MoE branch is not ported (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -81,8 +90,9 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..models import decode_step, fold_sample, forward
-from ..models.attention import init_cache, init_paged_cache, kv_fields
+from ..models import decode_step, fold_sample, forward, init_decode_cache
+from ..models.attention import (KVCache, QuantKVCache, init_paged_cache,
+                                kv_fields, seed_slots)
 from ..models.config import ModelConfig
 from ..obs import graph_hooks
 
@@ -180,12 +190,6 @@ class ContinuousBatchingEngine:
                  temperature: float = 0.0, seed: int = 0, tracer=None,
                  faults=None):
         cfg.validate()
-        if cfg.backbone_kind != "attn" or cfg.has_shared_attn:
-            raise NotImplementedError(
-                f"ContinuousBatchingEngine runs the dense attention backbone "
-                f"only; {cfg.arch_id} ({cfg.family}) needs recurrent-row "
-                f"admission, not ported yet (ROADMAP.md); serve it with "
-                f"DecodeEngine")
         self.cfg = cfg
         self.params = params
         self.device = params["embed"]["tok"].device
@@ -202,6 +206,10 @@ class ContinuousBatchingEngine:
         self.faults = faults
         self.paged = paged
         if paged:
+            if not self._can_page():
+                raise ValueError(
+                    "paged KV requires a full-attention backbone (attn, no "
+                    "sliding window, no shared attention)")
             self.block_size = block_size
             self.n_bt = max(1, math.ceil(capacity / block_size))
             self.capacity = self.n_bt * block_size
@@ -222,9 +230,14 @@ class ContinuousBatchingEngine:
             self.n_blocks = None
             self.allocator = None
             self.capacity = capacity
-            kv = init_cache(cfg, max_slots, capacity, self.device)
-            self.cache = {"layers": kv._replace(length=torch.zeros(
-                max_slots, dtype=torch.int32, device=self.device))}
+            # every KV cache (the dense stack's, the hybrid's shared
+            # block's) at one position per slot
+            self.cache = {
+                part: (c._replace(length=torch.zeros(
+                    max_slots, dtype=torch.int32, device=self.device))
+                       if isinstance(c, (KVCache, QuantKVCache)) else c)
+                for part, c in init_decode_cache(cfg, max_slots, capacity,
+                                                 self.device).items()}
         self.slots: list = [None] * max_slots
         self._graphs = graph_hooks.GraphCache(
             "continuous.paged" if paged else "continuous.slot", self.device)
@@ -235,6 +248,21 @@ class ContinuousBatchingEngine:
         self._outs: dict = {}
 
     # ------------------------------------------------------------ internals
+    def _can_page(self) -> bool:
+        """Paged decode covers the full-attention dense backbone: K/V per
+        position, blocks addressed by position. Ring buffers (sliding
+        window) and recurrent or hybrid state stay in slots."""
+        return (self.cfg.backbone_kind == "attn"
+                and not self.cfg.has_shared_attn
+                and self.cfg.sliding_window is None)
+
+    def _can_pad_batch(self) -> bool:
+        """Right-padded ragged prefill is exact only where no state flows
+        forward past the pads: pure attention, no window."""
+        return (self.cfg.backbone_kind == "attn" and self.max_slots > 1
+                and not self.cfg.has_shared_attn
+                and self.cfg.sliding_window is None)
+
     def _chunk_step(self, chunk: int):
         """One decode step of every slot over the static buffers: the
         next tokens land in row ``idx`` of the chunk's ``[chunk, slots]``
@@ -270,21 +298,39 @@ class ContinuousBatchingEngine:
             return torch.argmax(logits, dim=-1)
         return fold_sample(logits, self.seed, rids, gidx, self.temperature)
 
-    def _insert(self, k: torch.Tensor, v: torch.Tensor, slot_idx,
-                lengths: torch.Tensor) -> None:
-        """Write k prefilled rows (``k``/``v`` [L, k, S, nkv, hd]) into the
-        slot cache at ``slot_idx``, filling the rest of each row as the JAX
-        package's capacity-padded rows are (zeros; an int8 cache's scales
-        there are those of quantised zeros, 1e-8); ``lengths`` [k] are the
-        rows' true prompt lengths."""
-        kv = self.cache["layers"]
+    def _insert(self, seeds: dict, slot_idx, lengths: torch.Tensor) -> None:
+        """Write k prefilled rows (``forward``'s cache seeds, batch k) into
+        the slot cache at ``slot_idx``, every state leaf of each row:
+        K/V through :meth:`_insert_kv`, a recurrent state's leaves (stacked
+        on the layer axis, the hybrid's grouped stack on two) whole.
+        ``lengths`` [k] are the rows' true prompt lengths."""
+        for part, dst in self.cache.items():
+            if dst is None:
+                continue
+            src = seeds[part]
+            if isinstance(dst, (KVCache, QuantKVCache)):
+                self._insert_kv(dst, *src, slot_idx, lengths)
+                continue
+            idx = (slice(None),) * (2 if part == "grouped" else 1) \
+                + (slot_idx,)
+            for d, s in zip(dst, src):
+                if isinstance(d, torch.Tensor):
+                    d[idx] = s
+
+    def _insert_kv(self, kv, k: torch.Tensor, v: torch.Tensor, slot_idx,
+                   lengths: torch.Tensor) -> None:
+        """Write k prefilled rows of K/V (``[L, k, S, nkv, hd]``) into the
+        stacked cache at ``slot_idx``: the positions ``seed_slots`` keeps
+        at their slots (a ring's last C at ``p % C``), the rest of each row
+        as the JAX package's capacity-padded rows are (zeros; an int8
+        cache's scales there are those of quantised zeros, 1e-8)."""
         S = k.shape[2]
-        if S > self.capacity:
-            raise ValueError(f"prompt length {S} exceeds cache capacity "
-                             f"{self.capacity}")
-        for name, rows in kv_fields(k, v, self.cfg.kv_cache_dtype == "int8"):
+        kept, slots = (t.to(self.device)
+                       for t in seed_slots(self.cfg, S, kv.capacity))
+        for name, rows in kv_fields(k[:, :, kept], v[:, :, kept],
+                                    isinstance(kv, QuantKVCache)):
             buf = getattr(kv, name)
-            buf[:, slot_idx, :S] = rows
+            buf[:, slot_idx[:, None], slots[None]] = rows
             buf[:, slot_idx, S:] = 1e-8 if name.endswith("scale") else 0
         kv.length[slot_idx] = lengths
 
@@ -369,8 +415,10 @@ class ContinuousBatchingEngine:
         return self.admit_many([(rid, prompt, budget, max_extra)])[0]
 
     def admit_many(self, requests: Sequence[Tuple]) -> list:
-        """Admit queued requests ``(rid, prompt, budget, max_extra)`` in one
-        batched prefill. Returns per-request admission flags; admission is
+        """Admit queued requests ``(rid, prompt, budget, max_extra)`` in
+        batched prefills: one right-padded group on the full-attention
+        backbone, else one group per prompt length, in order of first
+        appearance. Returns per-request admission flags; admission is
         FIFO over the list and stops at the first request that does not
         fit (out of rows, or, paged, out of pool tokens).
 
@@ -393,12 +441,22 @@ class ContinuousBatchingEngine:
                 self._slot_reserved[free[len(batch)]] = nres
             batch.append((free[len(batch)], req))
             flags[j] = True
-        if batch:
-            self._admit_group(batch)
+        if not batch:
+            return flags
+        if self._can_pad_batch():
+            groups = [batch]
+        else:       # recurrent, hybrid, windowed: equal lengths, no pads
+            by_len: dict = {}
+            for item in batch:
+                by_len.setdefault(len(item[1][1]), []).append(item)
+            groups = list(by_len.values())
+        for group in groups:
+            self._admit_group(group)
         return flags
 
     def _admit_group(self, group) -> None:
-        """One right-padded prefill of the group and one insert."""
+        """One prefill of the group (right-padded to its longest prompt)
+        and one insert."""
         lengths = np.asarray([len(req[1]) for _, req in group],
                              dtype=np.int64)
         S = int(lengths.max())
@@ -430,7 +488,6 @@ class ContinuousBatchingEngine:
         out = forward(self.cfg, self.params,
                       torch.from_numpy(tokens).to(self.device),
                       return_cache=True)
-        k, v = out.cache["layers"]                       # [L, k, S, ..]
         lengths_d = self._rows(lengths)
         slot_idx = self._rows(slots)
         last = out.logits[torch.arange(len(group), device=self.device),
@@ -440,9 +497,9 @@ class ContinuousBatchingEngine:
             torch.zeros_like(lengths_d))            # first token: g = 0
         lengths_d = lengths_d.to(torch.int32)
         if self.paged:
-            self._insert_paged(k, v, slot_idx, lengths_d)
+            self._insert_paged(*out.cache["layers"], slot_idx, lengths_d)
         else:
-            self._insert(k, v, slot_idx, lengths_d)
+            self._insert(out.cache, slot_idx, lengths_d)
         return graph_hooks.to_host(firsts, "continuous.admit")
 
     @property

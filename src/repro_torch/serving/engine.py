@@ -27,7 +27,10 @@ Two execution paths share one contract, as in ``repro.serving.engine``:
 The engine runs every ported family (dense, RWKV6, the Mamba2 hybrid) on
 the device its parameters live on: on a CUDA device every prefill
 attention, wkv or SSD scan, decode attention and SwiGLU MLP goes through
-the Hopper kernels, and the decode kernels run inside the captured step.
+the Hopper kernels (a GELU MLP is PyTorch's matmuls, as in the JAX
+package), and the decode kernels run inside the captured step. A
+sliding-window model keeps a ring of ``min(cache_capacity, window)``
+slots, which a prompt longer than the ring overflows into.
 Prefill stays eager (its shapes follow the prompt). The decode cache is
 updated in place; an int8 KV cache (``kv_cache_dtype="int8"``) is a
 static buffer like any other, its scales copied in beside its codes.

@@ -10,11 +10,12 @@ Two execution modes, as in ``repro.serving.server``:
 
 ``batch_size > 1`` serves up to that many queued requests together (batch
 service time = slowest member plus an overhead per extra member). The
-real-token path takes either engine: a :class:`DecodeEngine` (one
-batch-synchronous ``generate``) or a :class:`ContinuousBatchingEngine`
-(batched admission and chunked decode of a rolling batch, re-admitting as
-slots retire, with the KV occupancy sampled at every chunk into the
-report).
+real-token path takes either engine, for every ported family: a
+:class:`DecodeEngine` (one batch-synchronous ``generate``) or a
+:class:`ContinuousBatchingEngine` (batched admission and chunked decode of
+a rolling batch, re-admitting as slots retire, with the KV occupancy
+sampled at every chunk into the report; recurrent, hybrid and windowed
+rows in slot mode only).
 
 Hooks, each ``None`` by default and guarded by one ``is not None`` check:
 

@@ -5,7 +5,9 @@ after ``jax.device_get`` (nested dicts of numpy arrays), and returns the
 port's parameter dict with the same keys and stacked layouts, so both
 packages compute the same function in the parity tests: the dense,
 recurrent (``rwkv``) and hybrid (``blocks`` plus ``shared_attn``) trees
-alike. Each leaf keeps its dtype, so the f32 leaves of a bf16 model
+alike, with every norm's leaves as they come (RMS norm's ``scale``,
+LayerNorm's ``scale`` and ``bias``, OLMo's empty norms) and a GELU MLP's
+``up`` and ``down`` without a ``gate``. Each leaf keeps its dtype, so the f32 leaves of a bf16 model
 (RWKV6's ``w0`` and ``u``, Mamba2's ``A_log``, ``D`` and ``dt_bias``) stay
 f32. It takes numpy only and imports nothing of JAX.
 """

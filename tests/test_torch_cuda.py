@@ -94,6 +94,30 @@ def test_flash_window_matches_plain(cuda_device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_window_4096_past_the_window_matches_plain(cuda_device,
+                                                         dtype):
+    """starcoder2-3b's prefill past its window: 2 kv heads of 128, 12 query
+    heads each, S = 4200 with a window of 4096, so the last 104 queries'
+    first key tiles are skipped and their tile at the window's edge is
+    masked in part; the model's views."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    B, S, H, G, hd = 1, 4200, 2, 12, 128
+    q = torch.randn(B, S, H, G, hd, generator=g, device=cuda_device) \
+        .to(dtype).permute(0, 2, 3, 1, 4)
+    k = torch.randn(B, S, H, hd, generator=g, device=cuda_device) \
+        .to(dtype).permute(0, 2, 1, 3)
+    v = torch.randn(B, S, H, hd, generator=g, device=cuda_device) \
+        .to(dtype).permute(0, 2, 1, 3)
+    reset_launches()
+    got = flash_attention(q, k, v, window=4096)
+    assert LAUNCHES["flash_attention"] == 1
+    want = flash_attention_plain(q, k, v, window=4096)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_matches_plain(cuda_device, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(1)
     B, C, H, G, hd = 2, 2048, 8, 2, 128
@@ -352,6 +376,19 @@ def test_scans_every_slice_width_matches_plain(cuda_device, monkeypatch,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scans_batch4_match_plain(cuda_device, dtype):
+    """Both scans at B = 4, S = 64, at rwkv6-1.6b's and zamba2-7b's widths:
+    a continuous admission group of four equal-length prompts (the plan
+    cuts 4 x 32 wkv heads into two slices each, 4 x 112 SSD heads into
+    one)."""
+    args = _rwkv_case(cuda_device, dtype, 4, 64, 32, 64)
+    _check_scan(rwkv6_scan(*args), rwkv6_scan_plain(*args), dtype, True)
+    args = _ssd_case(cuda_device, dtype, 4, 64, 112, 64, 64)
+    _check_scan(ssd_scan(*args), ssd_scan_plain(*args), dtype, False)
+
+
+@pytest.mark.cuda
 def test_zamba2_shared_block_shapes_match_plain(cuda_device):
     """The shared block's kernels at zamba2-7b's widths: flash and slot
     decode at head_dim 112 (G = 1), the FFN at d 3584 / d_ff 14336 at
@@ -582,6 +619,31 @@ def test_split_paged_widths_match_plain(cuda_device, dtype, hd, G, bs):
     want = paged_decode_attention_plain(q, kp, vp, tables, pos)
     _assert_decode_close(got, want, rows=slice(0, B - 1))
     assert bool((got[-1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["g12_full_ring", "g12_wrapping_ring",
+                                  "hd80_g1"])
+def test_split_decode_new_dense_shapes_match_plain(cuda_device, dtype,
+                                                   case):
+    """starcoder2-3b's decode (2 kv heads of 128, 12 query heads each) over
+    its ring of 4096: full after a wrap, and a mask that wraps past slot 0
+    (slots 3796-4095 and 0-199 valid); stablelm-3b's (32 kv heads of 80,
+    one query head each) at 300 valid positions of 2048, batch 2."""
+    if case == "hd80_g1":
+        B, C, H, G, hd = 2, 2048, 32, 1, 80
+        valid = _prefix_valid(cuda_device, C, [300, 1999])
+    else:
+        B, C, H, G, hd = 1, 4096, 2, 12, 128
+        valid = torch.ones(1, C, dtype=torch.bool, device=cuda_device)
+        if case == "g12_wrapping_ring":
+            valid[0, 200:C - 300] = False
+    q, k, v, valid = _slot_case(cuda_device, dtype, B, C, H, G, hd, valid)
+    reset_launches()
+    got = decode_attention(q, k, v, valid)
+    assert LAUNCHES["decode_attention"] == 1
+    _assert_decode_close(got, decode_attention_plain(q, k, v, valid))
 
 
 @pytest.mark.cuda
@@ -838,11 +900,15 @@ def _eager(eng):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["qwen3-0.6b", "qwen3-0.6b-slot",
                                   "qwen3-0.6b-paged", "rwkv6-1.6b",
-                                  "zamba2-7b"])
+                                  "zamba2-7b", "starcoder2-3b",
+                                  "rwkv6-1.6b-slot", "zamba2-7b-slot",
+                                  "starcoder2-3b-slot"])
 def test_graph_chunk_equals_eager_chunk(cuda_device, case):
     """The replayed chunk equals the same static-buffer step run eagerly,
     bit for bit: the tokens and every cache leaf, in bf16. ``-slot`` and
-    ``-paged`` are the continuous engine; the rest ``DecodeEngine``."""
+    ``-paged`` are the continuous engine (recurrent, hybrid and windowed
+    rows in slot mode, admitted in groups of equal length); the rest
+    ``DecodeEngine``."""
     import numpy as np
 
     from repro_torch.obs import graph_hooks
@@ -855,9 +921,10 @@ def test_graph_chunk_equals_eager_chunk(cuda_device, case):
     runs = []
     for make in (lambda e: e, _eager):
         if case.endswith(("slot", "paged")):
+            paged = case.endswith("paged")
             eng = make(ContinuousBatchingEngine(
-                cfg, params, max_slots=3, capacity=64, chunk=4,
-                paged=case.endswith("paged"), block_size=8, n_blocks=12))
+                cfg, params, max_slots=3, capacity=64, chunk=4, paged=paged,
+                **(dict(block_size=8, n_blocks=12) if paged else {})))
             runs.append((_drain(eng), _leaves(eng.cache)))
         else:
             eng = make(DecodeEngine(cfg, params, cache_capacity=64, chunk=4))

@@ -7,7 +7,12 @@ must equal the eager per-token loop's and the JAX package's engines', at
 chunks 1, 4 and 16 and at uneven budgets, for reduced ``qwen3-0.6b``
 (``DecodeEngine``, and the continuous engine in slot and paged mode),
 reduced ``rwkv6-1.6b`` and the hybrid ``zamba2-7b`` at ``n_layers=5,
-attn_every=2`` (the shared block runs twice). The JAX engines' tokens do
+attn_every=2`` (the shared block runs twice); the continuous engine's
+step also on those two and on reduced ``starcoder2-3b`` (a ring of 64),
+whose rows it admits in groups of equal prompt length and whose states
+it copies in place, there against the per-token drain only
+(``tests/test_torch_continuous_recurrent.py`` holds them to the JAX
+engine). The JAX engines' tokens do
 not depend on their chunk (``tests/test_engine_fast_path.py``,
 ``tests/test_paged.py``), so each is computed once. The five cases of
 ``tests/test_obs_jax_hooks.py`` are ported to ``graph_hooks``, with "one
@@ -32,7 +37,7 @@ from repro.serving.continuous import ContinuousBatchingEngine as JContinuous
 from repro_torch import core as tcore
 from repro_torch import queueing_sim as tqs
 from repro_torch.configs import get_config
-from repro_torch.models import decode_step, forward, reduced
+from repro_torch.models import decode_step, forward, init_params, reduced
 from repro_torch.models.attention import attn_decode_stacked, init_cache
 from repro_torch.obs import graph_hooks
 from repro_torch.serving import (ContinuousBatchingEngine, DecodeEngine,
@@ -210,8 +215,8 @@ CONT = dict(max_slots=3, capacity=64)
 PAGED = dict(paged=True, block_size=8, n_blocks=12)   # back-pressured
 
 
-def _drain(eng, chunk=None):
-    pending, done = list(REQUESTS), {}
+def _drain(eng, chunk=None, requests=REQUESTS):
+    pending, done = list(requests), {}
     while pending or eng.n_active:
         if pending:
             flags = eng.admit_many(pending)
@@ -244,6 +249,36 @@ def test_continuous_chunk_path_matches_step_and_reference(
     label = f"continuous.{mode}"
     # one capture in each engine: `chunk`, and the per-token drain's 1
     assert graph_hooks.capture_counts()[label] == 2
+
+
+# recurrent, hybrid and windowed rows: prompt lengths repeat (groups of
+# equal length), one past starcoder2's reduced window of 64 (its ring in
+# a capacity of 128)
+ROW_ARCHS = ["rwkv6-1.6b", "zamba2-7b", "starcoder2-3b"]
+ROW_CONT = dict(max_slots=3, capacity=128)
+ROW_REQUESTS = [(i, (np.arange(n) * (i + 2)) % 89 + 2, b, 3)
+                for i, (n, b) in enumerate(zip((9, 70, 9, 5, 5, 9),
+                                               (5, 0, 17, 9, 2, 12)))]
+
+
+@pytest.mark.parametrize("arch", ROW_ARCHS)
+def test_continuous_rows_chunk_path_matches_step(arch):
+    """The static-buffer step over recurrent states (copied in place), the
+    hybrid's shared K/V at per-row positions and a windowed ring: the
+    chunk path (16) equals the per-token drain, each engine capturing its
+    step once. (Both against the JAX engine:
+    tests/test_torch_continuous_recurrent.py.)"""
+    _, cfg = _configs(arch)
+    params = init_params(cfg, seed=0, device="cpu")
+    got = _drain(ContinuousBatchingEngine(cfg, params, chunk=16,
+                                          **ROW_CONT), requests=ROW_REQUESTS)
+    per_token = _drain(ContinuousBatchingEngine(cfg, params, chunk=16,
+                                                **ROW_CONT),
+                       chunk=1, requests=ROW_REQUESTS)
+    assert got == per_token
+    assert {rid: len(t) for rid, t in got.items()} \
+        == {rid: max(b + x, 1) for rid, _, b, x in ROW_REQUESTS}
+    assert graph_hooks.capture_counts()["continuous.slot"] == 2
 
 
 def test_continuous_one_read_per_chunk(qwen3):

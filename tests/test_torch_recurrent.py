@@ -389,10 +389,19 @@ def test_server_report_and_tokens_match_reference(model):
 
 
 def test_continuous_engine_refuses_recurrent_families(model):
+    """The continuous engine refuses these families its paged pool, as the
+    JAX engine does, and serves them in slot mode
+    (tests/test_torch_continuous_recurrent.py)."""
     _, _, cfg, params = model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="paged KV"):
         tserving.ContinuousBatchingEngine(cfg, params, max_slots=2,
-                                          capacity=32)
+                                          capacity=32, paged=True)
+    eng = tserving.ContinuousBatchingEngine(cfg, params, max_slots=2,
+                                            capacity=32)
+    assert eng.admit(0, np.arange(1, 6), 3, 1)
+    while eng.n_active:
+        done = eng.step_chunk()
+    assert len(done[0].tokens) == 4
 
 
 @pytest.mark.parametrize("arch", ARCHS)
