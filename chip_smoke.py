@@ -41,6 +41,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
    split's tiles, a ring window, a dominant score in the last split),
    and a paged table with sentinel holes and a retired slot, which must
    read 0;
+3a. des: the discrete-event simulator's four CUDA lanes (Lindley, free
+   server, windowed masked argmin, impatience event pass) at the sizes of
+   the repo's DES benchmarks: BENCH_disciplines.json's grid (3 policies x
+   3 arrival rates x 16 seeds x 10,000 queries, window 512) through
+   sweep_disciplines and sweep with backend="torch" (fifo, sjf,
+   priority, spjf), BENCH_multiserver.json's four cells (c 2 / 4, rho
+   0.6 / 0.9) through free_server_torch with the Lee-Longton gap checked
+   as the bench does, and benchmarks/resilience_bench.py's retry lane
+   (16 streams x 20,000 queries at rho 0.95, patience 2 and 200, both
+   orphaned modes) through impatience_torch; each kernel's launches on
+   that run, every kernel call of it recorded; then each kernel on
+   exactly the inputs the main path gave it: bitwise equal to one plain
+   pass on the card over all of them stacked along the streams (the four
+   retry policies as 64 streams at full size; the nine windowed launches,
+   48 streams each, with fifo's keys on the same streams), within 1e-9 of
+   the NumPy lane after the heapq fallback, and the windowed lane within
+   1e-10 of mg1.event_loop on 6 streams a discipline; times of kernel
+   (summed over the main path's launches, and each launch), plain version
+   (on the card) and NumPy lane (host), the bytes-or-fp64 bound and the
+   sequential floor (the launches' dependent steps x one step's latency,
+   measured); the rows print as the des_lanes line before the
+   kernels' summary;
 4. model: full-width qwen3-0.6b in f32 (random weights from seed 0), one
    prompt, prefill plus 8 greedy decode steps, kernels against the
    reference path (force_ref): logits within 1e-3, greedy tokens equal;
@@ -142,9 +164,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    seconds), fit_step_latency to phase 9's points; paper_problem solved
    again with the fitted t0 and c, its budgets printed beside the
    paper's, and the occupancy model at the fitted constants. These print
-   numbers and gate nothing on speed.
+   numbers and gate nothing on speed. Then the integer step on the fitted
+   problem: solve with integer_method exhaustive, coordinate and round,
+   the eq-41 sandwich in tests/test_core_integer.py's order, and the
+   deployed budgets through simulate_fifo_batch(backend="torch") (16
+   seeds x 10,000 queries at lambda 0.1): the P-K mean system time must
+   lie within the DES mean +- 3 x its 95% CI.
 
-The line before the last is the kernels' JSON summary (with each kernel's
+The des_lanes line, the card's name and power limit, then, as the line
+before the last, the kernels' JSON summary (with each kernel's
 launches on every serve path that ran it, the int8 serve, the int8 paged
 drain, the hooks serve, every continuous serve, the recurrent drains and
 the window check among them); the last line is
@@ -153,8 +181,10 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import inspect
 import json
 import pathlib
 import statistics
@@ -1904,7 +1934,481 @@ def calibration_phase(served_8b: dict, occupancy: dict) -> dict:
     print(json.dumps(out))
     check(lat.c > 0 and np.isfinite(lat.rmse), "latency fit failed")
     check(bool(np.all(np.isfinite(sol.lengths_cont))), "re-solve failed")
+    integer_sandwich(fitted, sol)
     return out
+
+
+def integer_sandwich(fitted, sol, device=None) -> dict:
+    """The paper's integer step on the card-fitted problem: ``solve`` with
+    each integer method, the eq-41 sandwich at l*, held to
+    tests/test_core_integer.py's ordering (J(l*) above every integer
+    point, exhaustive and coordinate at least rounding, rounding at least
+    J_bar), then the loop closed: the deployed budgets through the torch
+    DES lane (simulate_fifo_batch, 16 seeds x 10,000 queries at lambda
+    0.1, the card-fitted service times), whose mean system time must hold
+    the P-K prediction within 3 x its 95% CI."""
+    from repro_torch.core import sandwich, solve
+    from repro_torch.queueing_sim import (ci95, generate_streams,
+                                          pk_prediction,
+                                          simulate_fifo_batch)
+
+    by_method = {}
+    for m in ("exhaustive", "coordinate", "round"):
+        s_m = solve(fitted, integer_method=m)
+        by_method[m] = {"lengths_int": s_m.lengths_int.astype(int).tolist(),
+                        "value_int": s_m.value_int}
+    sw = sandwich(fitted, sol.lengths_cont)
+    j = {k: v for k, v in sw.items() if k.startswith("J_")}
+    eps = 1e-12
+    check(j["J_continuous"] >= max(j["J_int_exhaustive"],
+                                   j["J_int_coordinate"]) - eps
+          and min(j["J_int_exhaustive"], j["J_int_coordinate"])
+          >= j["J_int_round"] - eps
+          and j["J_int_round"] >= j["J_bar_lower_bound"],
+          f"integer sandwich out of order: {j}")
+    check(by_method["exhaustive"]["lengths_int"]
+          == sw["l_exhaustive"].astype(int).tolist(),
+          "solve(exhaustive) and sandwich disagree")
+    lam = fitted.server.lam
+    deployed = np.asarray(sol.lengths_int, dtype=np.float64)
+    batch = generate_streams(fitted.tasks, lam, DES_SEEDS, DES_QUERIES,
+                             seed=0)
+    stats = simulate_fifo_batch(fitted, deployed, batch, backend="torch",
+                                device=device)
+    des_mean = float(stats.mean_system_time.mean())
+    des_ci = float(ci95(stats.mean_system_time))
+    pk = pk_prediction(fitted, deployed)["mean_system_time"]
+    out = {"phase": "integer_sandwich", "by_method": by_method,
+           **{k: (v.tolist() if isinstance(v, np.ndarray) else v)
+              for k, v in sw.items()},
+           "closed_loop": {"lam": lam, "seeds": DES_SEEDS,
+                           "queries": DES_QUERIES,
+                           "budgets": deployed.astype(int).tolist(),
+                           "pk_mean_system_time_s": pk,
+                           "des_mean_system_time_s": des_mean,
+                           "des_ci95_s": des_ci,
+                           "pk_minus_des_over_ci": (pk - des_mean) / des_ci}}
+    print(json.dumps(out))
+    check(abs(pk - des_mean) <= 3 * des_ci,
+          f"P-K {pk} outside the DES mean {des_mean} +- 3 x {des_ci}")
+    return out
+
+
+# ------------------------------------------------------------- DES lanes
+# The repo's DES benchmarks: BENCH_disciplines.json's grid (three policies,
+# lambda at rho_u300 0.5 / 0.65 / 0.8, 16 seeds x 10,000 queries, window
+# 512), BENCH_multiserver.json's (c 2 / 4 x rho 0.6 / 0.9, 16 x 10,000) and
+# benchmarks/resilience_bench.py's retry lane (rho 0.95, exponential
+# services of mean 1, 20,000 queries, here 16 seeded streams).
+DES_LSTAR = (0.0, 340.0, 0.0, 0.0, 345.0, 30.0)   # ~ paper Table I l*
+DES_RHOS_U300 = (0.5, 0.65, 0.8)
+DES_SEEDS, DES_QUERIES, DES_WINDOW = 16, 10_000, 512
+DES_MGC_CELLS = ((2, 0.6), (2, 0.9), (4, 0.6), (4, 0.9))
+DES_LL_RTOL = {0.6: 0.15, 0.9: 0.05}   # multiserver_bench.py's allowance
+DES_RETRY_QUERIES, DES_RETRY_RHO = 20_000, 0.95
+DES_TAUS = (2.0, 200.0)
+DES_TOL_NUMPY, DES_TOL_ORACLE = 1e-9, 1e-10
+FP64_FLOPS = 34e12     # H100 SXM fp64 outside the tensor cores (data sheet)
+DES_REPLACES = {
+    "des_lindley": "src/repro/queueing_sim/batched.py:85",
+    "des_free_server": "src/repro/queueing_sim/multiserver.py:115",
+    "des_windowed": "src/repro/queueing_sim/disciplines.py:376",
+    "des_impatience": "src/repro/queueing_sim/impatience.py:255",
+}
+# each lane's wrapper in kernels/des_scan.py (its plain version: + "_plain")
+DES_WRAPPERS = {"des_lindley": "lindley", "des_free_server": "free_server",
+                "des_windowed": "windowed",
+                "des_impatience": "impatience_pass"}
+
+
+def timed_call(fn) -> tuple:
+    """``(fn(), its CUDA-event ms)``: one call, for the plain versions,
+    whose output is then checked."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def host_call(fn) -> tuple:
+    """``(fn(), its host-clock ms)``, for the NumPy lanes."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def step_latency_ns(dev, flush) -> float:
+    """One dependent Lindley step (max, add) on one thread, in ns: the
+    latency the lanes' sequential floor multiplies."""
+    from repro_torch.kernels import des_scan
+
+    out = torch.zeros(1, dtype=torch.float64, device=dev)
+    steps = 1 << 22
+    ms = median_ms(lambda: des_scan.step_probe(out, 0.5, 1e-3, steps),
+                   flush, reps=3)
+    return ms * 1e6 / steps
+
+
+@contextlib.contextmanager
+def recorded_calls(module, names):
+    """Record every call of ``module.<name>`` made inside the block, as
+    ``{"args": its bound arguments, "out": its result}``: the inputs the
+    main path handed each kernel and what the kernel returned there. The
+    wrappers still run (and count their launches) as they would."""
+    calls = {nm: [] for nm in names}
+    orig = {nm: getattr(module, nm) for nm in names}
+
+    def recorder(nm):
+        sig = inspect.signature(orig[nm])
+
+        def call(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            out = orig[nm](*args, **kwargs)
+            calls[nm].append({"args": dict(bound.arguments), "out": out})
+            return out
+        return call
+
+    for nm in names:
+        setattr(module, nm, recorder(nm))
+    try:
+        yield calls
+    finally:
+        for nm, fn in orig.items():
+            setattr(module, nm, fn)
+
+
+def _stacked(calls) -> dict:
+    """Several calls' arguments stacked along the streams, for one plain
+    pass over all of them: tensors concatenated, a scalar kept where every
+    call passed the same one, else spread into a per-stream tensor."""
+    first = [next(iter(c["args"].values())) for c in calls]
+    out = {}
+    for k, v0 in calls[0]["args"].items():
+        vs = [c["args"][k] for c in calls]
+        if torch.is_tensor(v0):
+            out[k] = torch.cat(vs)
+        elif all(v == v0 for v in vs):
+            out[k] = v0
+        else:
+            dtype = torch.float64 if isinstance(v0, float) else None
+            out[k] = torch.cat([torch.full((f.shape[0],), v, dtype=dtype,
+                                           device=f.device)
+                                for f, v in zip(first, vs)])
+    return out
+
+
+def _plain_err(got: tuple, want: tuple) -> float:
+    """Largest |kernel - plain| over a lane's outputs (NaN where both are
+    NaN counts 0; any other mismatch of NaNs or of integer outputs is
+    inf). The checks ask for 0: bitwise equal."""
+    err = 0.0
+    for g, w in zip(got, want):
+        if not g.is_floating_point():
+            err = max(err, 0.0 if torch.equal(g, w) else float("inf"))
+        else:
+            err = max(err, _des_err(g.cpu(), w.cpu()))
+    return err
+
+
+def _des_err(a, b) -> float:
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    both = ~(np.isnan(a) & np.isnan(b))
+    if np.any(np.isnan(a[both]) | np.isnan(b[both])):
+        return float("inf")
+    return float(np.max(np.abs(a[both] - b[both]), initial=0.0))
+
+
+def kernel_vs_plain(name, calls, flush, reps) -> dict:
+    """The lane's kernel timed on every input the main path gave it, and
+    its recorded outputs there held bitwise against one plain pass on the
+    card over those inputs stacked along the streams."""
+    from repro_torch.kernels import des_scan
+
+    wrapper = DES_WRAPPERS[name]
+    kernel = getattr(des_scan, wrapper)
+    plain = getattr(des_scan, wrapper + "_plain")
+    ms = [median_ms(lambda c=c: kernel(**c["args"]), flush, reps)
+          for c in calls]
+    p_out, plain_ms = timed_call(lambda: plain(**_stacked(calls)))
+    rows = [c["out"][0].shape[0] for c in calls]
+    err = max(_plain_err(c["out"], want) for c, want in
+              zip(calls, zip(*(torch.split(x, rows) for x in p_out))))
+    check(err == 0.0, f"{name} differs from its plain version ({err})")
+    return {"ms": sum(ms), "ms_per_launch": ms, "plain_ms": plain_ms,
+            "plain_err": err}
+
+
+def des_row(name, launches, kvp, numpy_ms, nbytes, ops, chain_steps,
+            step_ns, **extra) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP64_FLOPS * 1e3
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/des_scan.cu",
+            "replaces": DES_REPLACES[name], "launches": launches,
+            "max_abs_err": kvp["plain_err"], "ms": kvp["ms"],
+            "plain_ms": kvp["plain_ms"], "numpy_ms": numpy_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "sequential_floor_ms": chain_steps * step_ns * 1e-6,
+            "library_ms": None, "ms_per_launch": kvp["ms_per_launch"],
+            **extra}
+
+
+def des_phase(dev, flush) -> list:
+    """The DES lanes at the repo's DES benchmark sizes (see DES_*): the
+    main path through the simulator's entry points with ``backend="torch"``
+    (counts set to 0 before, read after; every kernel call recorded), then
+    each kernel on exactly the inputs the main path gave it: bitwise
+    against one plain pass on the card over all of them, against the NumPy
+    lane (1e-9, after the heapq fallback) and, the windowed lane, against
+    the heapq oracle (1e-10, 6 streams a discipline). Every row covers all
+    of its lane's launches on the main path. Returns the ``des_lanes``
+    rows."""
+    from repro_torch.core import mgc_wait_np, paper_problem
+    from repro_torch.data.predictor import LengthPredictor
+    from repro_torch.kernels import LAUNCHES, des_scan, reset_launches
+    from repro_torch.queueing_sim import (RetryPolicy, ci95, event_loop,
+                                          free_server_numpy,
+                                          free_server_torch,
+                                          generate_streams, impatience_numpy,
+                                          impatience_torch, lindley_numpy,
+                                          summarize_impatience, sweep,
+                                          sweep_disciplines,
+                                          windowed_start_finish)
+    from repro_torch.queueing_sim.batched import _service_table
+
+    t_phase = time.perf_counter()
+    step_ns = step_latency_ns(dev, flush)
+    prob = paper_problem(lam=0.1, alpha=30.0)
+    tasks = prob.tasks
+    lstar = np.asarray(DES_LSTAR)
+    policies = {"optimal": lstar, "uniform_100": np.full(6, 100.0),
+                "uniform_300": np.full(6, 300.0)}
+    pi = np.asarray(tasks.pi)
+    es300 = float(np.sum(pi * _service_table(prob, np.full(6, 300.0))))
+    lams = [r / es300 for r in DES_RHOS_U300]
+    keyed = ("fifo", "sjf", "priority", "spjf")
+
+    # ---- the main path: the simulator's entry points on the card
+    t_tab = _service_table(prob, lstar)
+    es = float(np.sum(pi * t_tab))
+    mgc_batches = [generate_streams(tasks, rho * c / es, DES_SEEDS,
+                                    DES_QUERIES, seed=0)
+                   for c, rho in DES_MGC_CELLS]
+    arr_mgc = np.stack([b.arrivals for b in mgc_batches])
+    svc_mgc = t_tab[np.stack([b.types for b in mgc_batches])]
+    c_mgc = np.array([c for c, _ in DES_MGC_CELLS])[:, None]
+    r = np.random.default_rng(11)
+    shape = (DES_SEEDS, DES_RETRY_QUERIES)
+    a_ret = np.cumsum(r.exponential(1.0 / DES_RETRY_RHO, size=shape), axis=1)
+    s_ret = r.exponential(1.0, size=shape)
+    policies_ret = [RetryPolicy(patience=tau, max_retries=3, backoff0=0.5,
+                                orphaned_service=orph)
+                    for tau in DES_TAUS for orph in (True, False)]
+    torch.cuda.synchronize()
+    reset_launches()
+    with recorded_calls(des_scan, DES_WRAPPERS.values()) as rec:
+        t_main = time.perf_counter()
+        res = sweep_disciplines(prob, policies, lams, disciplines=keyed,
+                                n_seeds=DES_SEEDS, n_queries=DES_QUERIES,
+                                window=DES_WINDOW,
+                                predictor=LengthPredictor(),
+                                backend="torch", device=dev)
+        fifo_sweep = sweep(prob, policies, lams, n_seeds=DES_SEEDS,
+                           n_queries=DES_QUERIES, backend="torch",
+                           device=dev)
+        st_mgc, _ = free_server_torch(arr_mgc, svc_mgc, c_mgc, device=dev)
+        ret = [impatience_torch(a_ret, s_ret, pol, device=dev)
+               for pol in policies_ret]
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t_main
+    launches = {k: LAUNCHES[k] for k in DES_REPLACES}
+    calls = {k: rec[w] for k, w in DES_WRAPPERS.items()}
+    print(json.dumps({"phase": "des_main_path", "seconds": main_s,
+                      "launches": launches}))
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the des main path")
+        check(len(calls[name]) == n,
+              f"{name}: {len(calls[name])} calls for {n} launches")
+    # tests/test_disciplines.py's pin of sweep_disciplines against sweep
+    check(bool(np.allclose(fifo_sweep.mean_system_time,
+                           res["fifo"].mean_system_time, rtol=0,
+                           atol=DES_TOL_NUMPY)),
+          "sweep(fifo, torch) and sweep_disciplines' fifo disagree")
+    for d in keyed:
+        out = {"phase": "des_discipline", "discipline": d,
+               "policies": list(policies), "lams": lams,
+               "mean_wait": res[d].mean_wait.tolist(),
+               "mean_system_time": res[d].mean_system_time.tolist(),
+               "ci_system_time": res[d].ci_system_time.tolist(),
+               "overflow_frac": res[d].overflow_frac.tolist()}
+        print(json.dumps(out))
+        check(bool(np.all(np.isfinite(res[d].mean_system_time))),
+              f"{d}: non-finite sweep means")
+    host = lambda t: t.cpu().numpy()
+    rows = []
+
+    # Lindley: sweep's FIFO pass over the grid
+    kvp = kernel_vs_plain("des_lindley", calls["des_lindley"], flush, 25)
+    numpy_ms, err_np, nbytes, ops, chain = 0.0, 0.0, 0, 0, 0
+    for c in calls["des_lindley"]:
+        a, s = host(c["args"]["arrivals"]), host(c["args"]["services"])
+        want, t = host_call(lambda: lindley_numpy(a, s))
+        numpy_ms += t
+        err_np = max([err_np] + [_des_err(host(g), w)
+                                 for g, w in zip(c["out"], want)])
+        nbytes, ops, chain = nbytes + 4 * a.size * 8, ops + 2 * a.size, \
+            chain + a.shape[1]
+    check(err_np <= DES_TOL_NUMPY, f"des_lindley vs lindley_numpy {err_np}")
+    rows.append(des_row("des_lindley", launches["des_lindley"], kvp,
+                        numpy_ms, nbytes, ops, chain, step_ns,
+                        shapes=[list(c["args"]["arrivals"].shape)
+                                for c in calls["des_lindley"]],
+                        max_err_numpy=err_np))
+
+    # the windowed argmin: sweep_disciplines' sjf / priority / spjf
+    # launches, a lambda each, and fifo's keys (the arrivals) on the same
+    # streams, which the main path serves through Lindley instead
+    wcalls = calls["des_windowed"]
+    labels = [d for _ in lams for d in keyed if d != "fifo"]
+    check(len(wcalls) == len(labels),
+          f"des_windowed: {len(wcalls)} launches, expected {len(labels)}")
+    fifo_calls = []
+    for c in wcalls[::len(keyed) - 1]:
+        args = {**c["args"], "kp": c["args"]["ap"]}
+        fifo_calls.append({"args": args, "out": des_scan.windowed(**args)})
+    wcalls, labels = wcalls + fifo_calls, labels + ["fifo"] * len(lams)
+    kvp = kernel_vs_plain("des_windowed", wcalls, flush, 5)
+    W = DES_WINDOW
+    by_d = {d: [j for j, x in enumerate(labels) if x == d] for d in keyed}
+    w_numpy_ms = dict.fromkeys(keyed, 0.0)
+    w_err_np, w_err_or = dict.fromkeys(keyed, 0.0), dict.fromkeys(keyed, 0.0)
+    nbytes, ops, chain = 0, 0, 0
+    for j, (c, d) in enumerate(zip(wcalls, labels)):
+        B, nw = c["args"]["ap"].shape
+        n = nw - W
+        arr, svc, keys = (host(c["args"][k][:, :n]) for k in ("ap", "sp",
+                                                                "kp"))
+        st_t, fi_t, _ = windowed_start_finish(arr, svc, keys, W,
+                                              backend="torch", device=dev)
+        (st_n, fi_n, _), t = host_call(
+            lambda: windowed_start_finish(arr, svc, keys, W))
+        w_numpy_ms[d] += t
+        w_err_np[d] = max(w_err_np[d], _des_err(st_t, st_n),
+                          _des_err(fi_t, fi_n))
+        for i in (0, B - 1):
+            ref = event_loop(arr[i], svc[i], keys[i])
+            w_err_or[d] = max(w_err_or[d], _des_err(st_t[i], ref[0]),
+                              _des_err(fi_t[i], ref[1]))
+        if d != "fifo":
+            nbytes += (3 * B * nw + 2 * B * n) * 8 + B
+            ops, chain = ops + 3 * B * n * W, chain + n
+    for d in keyed:
+        check(w_err_np[d] <= DES_TOL_NUMPY,
+              f"des_windowed {d} vs windowed_numpy {w_err_np[d]}")
+        check(w_err_or[d] <= DES_TOL_ORACLE,
+              f"des_windowed {d} vs heapq {w_err_or[d]}")
+    ms_d = {d: sum(kvp["ms_per_launch"][j] for j in js)
+            for d, js in by_d.items()}
+    ovf = {d: float(torch.cat([wcalls[j]["out"][2] for j in js])
+                    .float().mean()) for d, js in by_d.items()}
+    main = [j for j, d in enumerate(labels) if d != "fifo"]
+    kvp = {**kvp, "ms": sum(kvp["ms_per_launch"][j] for j in main),
+           "ms_per_launch": [kvp["ms_per_launch"][j] for j in main]}
+    rows.append(des_row(
+        "des_windowed", launches["des_windowed"], kvp,
+        sum(w_numpy_ms[d] for d in keyed if d != "fifo"), nbytes, ops,
+        chain, step_ns, shape_per_launch=list(wcalls[0]["args"]["ap"].shape),
+        window=W, disciplines_per_launch=labels[:len(main)],
+        plain_streams=sum(c["args"]["ap"].shape[0] for c in wcalls),
+        plain_covers="every main-path launch and fifo's keys on its streams",
+        ms_by_discipline=ms_d, numpy_ms_by_discipline=w_numpy_ms,
+        max_err_numpy=w_err_np, max_err_oracle=w_err_or,
+        kernel_overflow_frac=ovf))
+
+    # the free server: the multiserver grid's four cells in one call
+    kvp = kernel_vs_plain("des_free_server", calls["des_free_server"],
+                          flush, 25)
+    numpy_ms, err_np, nbytes, ops, chain = 0.0, 0.0, 0, 0, 0
+    for c in calls["des_free_server"]:
+        a, s = host(c["args"]["arrivals"]), host(c["args"]["services"])
+        free0 = host(c["args"]["free0"])
+        cs = np.isfinite(free0).sum(axis=1)
+        want, t = host_call(lambda: free_server_numpy(a, s, cs))
+        numpy_ms += t
+        err_np = max([err_np] + [_des_err(host(g), w)
+                                 for g, w in zip(c["out"], want)])
+        nbytes += 4 * a.size * 8 + free0.size * 8
+        ops, chain = ops + int(np.sum(cs + 2)) * a.shape[1], chain + a.shape[1]
+    check(err_np <= DES_TOL_NUMPY, f"des_free_server vs numpy {err_np}")
+    warm = DES_QUERIES // 4
+    gaps = []
+    for i, (c, rho) in enumerate(DES_MGC_CELLS):
+        waits = (st_mgc[i] - arr_mgc[i])[:, warm:].mean(axis=1)
+        lam = rho * c / es
+        pred_w = float(mgc_wait_np(tasks, lstar, lam, c))
+        ci = float(ci95(waits))
+        gap = float(waits.mean() - pred_w)
+        gaps.append({"c": c, "rho": rho, "lam": lam,
+                     "des_mean_wait": float(waits.mean()), "ci95": ci,
+                     "lee_longton_wait": pred_w, "gap": gap,
+                     "rel_error": gap / pred_w,
+                     "allowance_rel": DES_LL_RTOL[rho]})
+        check(abs(gap) <= ci + DES_LL_RTOL[rho] * pred_w,
+              f"c={c} rho={rho}: DES vs Lee-Longton {gap}")
+    print(json.dumps({"phase": "des_multiserver", "cells": gaps}))
+    rows.append(des_row("des_free_server", launches["des_free_server"], kvp,
+                        numpy_ms, nbytes, ops, chain, step_ns,
+                        shapes=[list(c["args"]["arrivals"].shape)
+                                for c in calls["des_free_server"]],
+                        max_err_numpy=err_np))
+
+    # the impatience pass: four retry policies, one launch each, against
+    # one plain pass over the four policies' streams (per-stream patience
+    # and orphaned mode) and against the NumPy lane
+    kvp = kernel_vs_plain("des_impatience", calls["des_impatience"], flush, 5)
+    i_numpy_ms, i_err, summaries = {}, 0.0, []
+    for pol, got in zip(policies_ret, ret):
+        kind = "orphaned" if pol.orphaned_service else "reneging"
+        tag = f"tau{pol.patience:g}_{kind}"
+        want, i_numpy_ms[tag] = host_call(
+            lambda: impatience_numpy(a_ret, s_ret, pol))
+        err = max(_des_err(got.start, want.start),
+                  _des_err(got.finish, want.finish),
+                  _des_err(got.wait, want.wait))
+        check(err <= DES_TOL_NUMPY
+              and np.array_equal(got.served, want.served)
+              and np.array_equal(got.n_attempts, want.n_attempts),
+              f"des_impatience {tag} vs impatience_numpy {err}")
+        i_err = max(i_err, err)
+        summaries.append({"policy": tag,
+                          **summarize_impatience(got, a_ret, s_ret, pol)})
+    print(json.dumps({"phase": "des_impatience", "streams": DES_SEEDS,
+                      "queries": DES_RETRY_QUERIES,
+                      "summaries": summaries}))
+    nbytes, ops, chain = 0, 0, 0
+    for c in calls["des_impatience"]:
+        S, E = c["args"]["t_ev"].shape
+        N = c["args"]["services"].numel()
+        nbytes += 3 * S * E * 8 + N * 8 + N * (1 + 4 * 8)
+        ops, chain = ops + 6 * S * E, chain + E
+    rows.append(des_row(
+        "des_impatience", launches["des_impatience"], kvp,
+        sum(i_numpy_ms.values()), nbytes, ops, chain, step_ns,
+        streams=DES_SEEDS, queries=DES_RETRY_QUERIES,
+        events_per_stream=int(calls["des_impatience"][0]["args"]["t_ev"]
+                              .shape[1]),
+        policies_per_launch=list(i_numpy_ms),
+        plain_streams=DES_SEEDS * len(policies_ret),
+        numpy_ms_by_policy=i_numpy_ms, max_err_numpy=i_err))
+    print(json.dumps({"phase": "des", "seconds": time.perf_counter() - t_phase,
+                      "step_latency_ns": step_ns, "rows": rows}))
+    return rows
 
 
 REPLACES = {
@@ -1947,6 +2451,7 @@ def main() -> int:
 
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     _, summary = kernel_cases(dev, flush)
+    des_lanes = des_phase(dev, flush)
     del flush
 
     from repro_torch.configs import get_config
@@ -2068,6 +2573,7 @@ def main() -> int:
                             path: counts[name]
                             for path, counts in by_path.items()
                             if counts.get(name)}})
+    print(json.dumps({"des_lanes": des_lanes}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

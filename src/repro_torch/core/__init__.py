@@ -6,7 +6,8 @@ PyTorch counterpart of ``repro.core``, float64 on the host. Public API:
     objective, grad                                 -- J(l) and its gradient (eq 7)
     solve_fixed_point, contraction_certificate      -- Sec III-B/C (eqs 19-26)
     solve_pga_backtracking, safe_step_size          -- Sec III-D (eqs 29-38)
-    round_policy, exhaustive_policy                 -- Sec III-E (eqs 39-41)
+    round_policy, exhaustive_policy, coordinate_policy, sandwich
+                                                    -- Sec III-E (eqs 39-41)
     TokenBudgetAllocator, solve                     -- end-to-end facade
     fit_latency, fit_accuracy, calibrate_taskset    -- Sec IV-A fits
     fit_step_latency, batch_service_wait, ...       -- occupancy model
@@ -19,7 +20,8 @@ from .batch_service import (BatchServiceResult, StepLatencyModel,
 from .calibration import calibrate_taskset, fit_accuracy, fit_latency
 from .fixed_point import (contraction_certificate, fixed_point_map,
                           solve_fixed_point)
-from .integer import exhaustive_policy, round_policy, rounding_lower_bound
+from .integer import (coordinate_policy, exhaustive_policy, round_policy,
+                      rounding_lower_bound, sandwich)
 from .lambertw import lambertw0
 from .mgc import (erlang_c, erlang_c_np, mean_system_time_mgc, mean_wait_mgc,
                   mgc_wait_np, objective_mgc, pod_replica_tradeoff,
@@ -36,7 +38,8 @@ __all__ = [
     "PAPER_TABLE1_LSTAR", "objective", "grad", "lipschitz_grad_bound",
     "solve_fixed_point", "fixed_point_map", "contraction_certificate",
     "solve_pga_backtracking", "safe_step_size", "round_policy",
-    "exhaustive_policy", "rounding_lower_bound", "lambertw0",
+    "exhaustive_policy", "coordinate_policy", "sandwich",
+    "rounding_lower_bound", "lambertw0",
     "TokenBudgetAllocator", "Solution", "solve", "service_moments",
     "mean_wait", "mean_system_time", "is_stable", "worst_case",
     "stability_clip", "calibrate_taskset", "fit_accuracy", "fit_latency",

@@ -45,21 +45,26 @@ class Solution:
     slo_satisfied: bool = True   # per-task delay SLOs met (True when none)
 
 
-def solve(problem: Problem, tol: float = 1e-8, delay_slo=None) -> Solution:
-    """Full solve: FP -> (PGA fallback) -> integer projection (the exact
-    floor/ceil search of eq 39 up to N = 16 task types, rounding, eq 40,
-    beyond).
+def solve(problem: Problem, tol: float = 1e-8,
+          integer_method: str = "exhaustive",
+          delay_slo=None) -> Solution:
+    """Full solve: FP -> (PGA fallback) -> integer projection.
+
+    ``integer_method``: ``"exhaustive"`` (the floor/ceil search of eq 39,
+    up to N = 16 task types, rounding beyond), ``"coordinate"`` (integer
+    coordinate descent from the rounded point) or anything else for
+    componentwise rounding (eq 40), as in the JAX package.
 
     ``delay_slo`` (optional ``[N]`` seconds) adds per-task mean-delay SLOs
     E[W] + t_k(l_k) <= slo_k by projection (:func:`_project_slo`).
     """
-    sol = _solve(problem, tol)
+    sol = _solve(problem, tol, integer_method)
     if delay_slo is None:
         return sol
     return _project_slo(problem, sol, delay_slo)
 
 
-def _solve(problem: Problem, tol: float) -> Solution:
+def _solve(problem: Problem, tol: float, integer_method: str) -> Solution:
     problem.validate()
     fp = fixed_point.solve_fixed_point(problem, tol=tol)
     method = "fixed_point"
@@ -84,8 +89,10 @@ def _solve(problem: Problem, tol: float) -> Solution:
         iters += int(pg.iterations)
         method = "fixed_point+pga"
 
-    if problem.tasks.n_tasks <= 16:
+    if integer_method == "exhaustive" and problem.tasks.n_tasks <= 16:
         ir = integer.exhaustive_policy(problem, lengths)
+    elif integer_method == "coordinate":
+        ir = integer.coordinate_policy(problem, lengths)
     else:
         ir = integer.round_policy(problem, lengths)
 

@@ -2,7 +2,8 @@
 
 Each kernel module (``flash_attention``, ``decode_attention`` with the
 slot and the paged kernel, ``fused_ffn``, ``rwkv6_scan``, ``ssd_scan``)
-holds wrappers that launch the
+and ``des_scan`` (the discrete-event simulator's four sequential lanes)
+hold wrappers that launch the
 CUDA kernels built from ``repro_torch/csrc`` for a CUDA tensor, and each
 kernel's plain PyTorch version, which the wrapper takes only for a CPU
 tensor. ``ops`` adapts the

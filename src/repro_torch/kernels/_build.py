@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 #: kernel libraries, one per CUDA source
 SOURCES = ("flash_attention", "decode_attention", "paged_decode_attention",
-           "fused_ffn", "rwkv6_scan", "ssd_scan")
+           "fused_ffn", "rwkv6_scan", "ssd_scan", "des_scan")
 
 _libs: dict = {}
 _lock = threading.Lock()

@@ -24,7 +24,7 @@ from ..compat import resolve_device
 from ..configs import ARCH_IDS, get_config
 from ..core import paper_problem
 from ..models import init_params, reduced
-from ..queueing_sim import DISCIPLINES, generate_stream, pk_prediction
+from ..queueing_sim import ALL_DISCIPLINES, generate_stream, pk_prediction
 from ..serving import DecodeEngine, LLMServer, ServerConfig
 
 
@@ -33,7 +33,7 @@ def main(argv=None):
     ap.add_argument("--queries", type=int, default=2000)
     ap.add_argument("--lam", type=float, default=0.1)
     ap.add_argument("--alpha", type=float, default=30.0)
-    ap.add_argument("--discipline", default="fifo", choices=DISCIPLINES)
+    ap.add_argument("--discipline", default="fifo", choices=ALL_DISCIPLINES)
     ap.add_argument("--batch-size", type=int, default=1)
     ap.add_argument("--online", action="store_true")
     ap.add_argument("--real-engine", action="store_true")

@@ -1149,3 +1149,126 @@ def test_hooked_server_one_capture_across_ladder_on_card(cuda_device):
     fs.release_all(eng)
     assert eng.check_block_invariants()
     assert eng.allocator.n_free == eng.allocator.n_blocks
+
+
+# ------------------------------------------------ the DES lanes (des_scan)
+def _des_streams(dev, B, n, lam=0.6, seed=0, services=(0.3, 0.9, 1.7)):
+    """[B, n] Poisson arrivals and services from a few values (so SJF keys
+    tie), float64 on ``dev``."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    a = np.cumsum(r.exponential(1.0 / lam, (B, n)), axis=1)
+    s = r.choice(np.asarray(services), (B, n))
+    return (torch.from_numpy(a).to(dev), torch.from_numpy(s).to(dev))
+
+
+def _same(got, want):
+    """Bitwise equal, NaN where NaN."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.is_floating_point():
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        got = torch.nan_to_num(got, nan=0.0)
+        want = torch.nan_to_num(want, nan=0.0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n", [(1, 1), (37, 1000), (64, 33)])
+def test_des_lindley_matches_plain(cuda_device, B, n):
+    from repro_torch.kernels import des_scan
+    a, s = _des_streams(cuda_device, B, n)
+    reset_launches()
+    got = des_scan.lindley(a, s)
+    assert LAUNCHES["des_lindley"] == 1
+    for g, w in zip(got, des_scan.lindley_plain(a, s)):
+        _same(g, w)
+
+
+@pytest.mark.cuda
+def test_des_free_server_matches_plain(cuda_device):
+    from repro_torch.kernels import des_scan
+    a, s = _des_streams(cuda_device, 40, 700, lam=2.0)
+    c = torch.tensor([1, 2, 3, 4, 8] * 8, device=cuda_device)
+    free0 = torch.zeros(40, 8, dtype=torch.float64, device=cuda_device)
+    free0[torch.arange(8, device=cuda_device)[None, :] >= c[:, None]] = \
+        torch.inf                                   # absent servers
+    reset_launches()
+    got = des_scan.free_server(a, s, free0)
+    assert LAUNCHES["des_free_server"] == 1
+    for g, w in zip(got, des_scan.free_server_plain(a, s, free0)):
+        _same(g, w)
+    with pytest.raises(ValueError, match="servers not supported"):
+        des_scan.free_server(a, s, torch.zeros(40, 9, dtype=torch.float64,
+                                               device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [8, 32, 100, 512])
+@pytest.mark.parametrize("key", ["fifo", "sjf", "priority"])
+def test_des_windowed_matches_plain(cuda_device, key, W):
+    from repro_torch.kernels import des_scan
+    B, n = 9, 600
+    a, s = _des_streams(cuda_device, B, n, lam=0.95)
+    k = {"fifo": a, "sjf": s, "priority": -(1.0 / (1.0 + s)) / s}[key]
+    pad = torch.full((B, W), torch.inf, dtype=torch.float64,
+                     device=cuda_device)
+    ap, kp = torch.cat([a, pad], 1), torch.cat([k, pad], 1)
+    sp = torch.cat([s, torch.zeros_like(pad)], 1)
+    reset_launches()
+    got = des_scan.windowed(ap, sp, kp, W)
+    assert LAUNCHES["des_windowed"] == 1
+    want = des_scan.windowed_plain(ap, sp, kp, W)
+    for g, w in zip(got, want):
+        _same(g, w)
+    if W == 8:
+        assert bool(got[2].any())               # an overflowing window
+    with pytest.raises(ValueError, match="window"):
+        des_scan.windowed(ap, sp, kp, 513)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("patience", [2.0, float("inf")])
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("orphaned", [True, False])
+def test_des_impatience_matches_plain(cuda_device, orphaned, c, patience):
+    import numpy as np
+
+    from repro_torch.kernels import des_scan
+    from repro_torch.queueing_sim.impatience import (RetryPolicy,
+                                                     _sorted_events)
+    a, s = _des_streams(cuda_device, 5, 300, lam=0.95 * c)
+    s = s * 1.1
+    pol = RetryPolicy(patience=patience, max_retries=3 if patience < 1e9
+                      else 0, backoff0=0.5, orphaned_service=orphaned)
+    t_ev, i_ev, k_ev = (torch.from_numpy(np.ascontiguousarray(x)).to(
+        cuda_device) for x in _sorted_events(a.cpu().numpy(), pol))
+    args = (t_ev, i_ev, k_ev, s, pol.patience, pol.max_retries, c, orphaned)
+    reset_launches()
+    got = des_scan.impatience_pass(*args)
+    assert LAUNCHES["des_impatience"] == 1
+    want = des_scan.impatience_pass_plain(*args)
+    for g, w in zip(got, want):
+        _same(g, w)
+    if patience < 1e9:
+        assert bool((~got[0]).any())             # some customers lost: NaN
+        assert bool(torch.isnan(got[2][~got[0]]).all())
+
+
+@pytest.mark.cuda
+def test_des_missing_build_raises(cuda_device, monkeypatch, tmp_path):
+    """A CUDA tensor whose kernel cannot be built raises; it never takes
+    the plain version."""
+    from repro_torch.kernels import _build, _cuda, des_scan
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_cuda, "_entries", {})
+    a, s = _des_streams(cuda_device, 2, 10)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        des_scan.lindley(a, s)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        des_scan.windowed(a, s, a, 4)

@@ -165,9 +165,14 @@ def test_wall_mode_times_the_engine():
 
 
 def test_unported_discipline_raises():
-    with pytest.raises(ValueError, match="not ported"):
+    """All six of the reference's disciplines are ported; any other name
+    raises, as in the reference."""
+    with pytest.raises(ValueError, match="unknown discipline"):
         tserving.LLMServer(tcore.paper_problem(),
-                           tserving.ServerConfig(discipline="srpt"))
+                           tserving.ServerConfig(discipline="lifo"))
+    srv = tserving.LLMServer(tcore.paper_problem(),
+                             tserving.ServerConfig(discipline="srpt"))
+    assert srv.scheduler.discipline == "srpt"
 
 
 def test_launcher_runs_to_its_end(capsys):
