@@ -170,6 +170,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
    deployed budgets through simulate_fifo_batch(backend="torch") (16
    seeds x 10,000 queries at lambda 0.1): the P-K mean system time must
    lie within the DES mean +- 3 x its 95% CI.
+15. sweeps: repro_torch.sweeps.solve_grid on the card over
+   tests/test_solver_grid.py's 100-cell grid (lambda 0.05-0.5 x alpha
+   10-60 x l_max 1024 / 32768), its three PGA-fallback cells (lambda 1-3),
+   a c-grid (c 1 / 2 / 4 x five lambdas up to 0.9 c lambda_sat) and a
+   10,000-cell grid on the same axes: each solved cold and warm on the
+   card and once on the host, and held to the host run (integer budgets,
+   feasible, stable, used_pga and per-cell iteration counts equal,
+   continuous optima within 1e-6, J(l*) within 1e-9). An Armijo cell may
+   stop apart on the card and the host (its iteration count differs or
+   its optimum moves by 1e-6 or more: rounding on the card's last bits
+   can move an Armijo test, and the stopping test fixes l* on a flat
+   objective only to about tol over its curvature); such cells are
+   counted, held to J(l*) within 1e-9 and, at the grid's tol and
+   re-solved on both at tol 1e-12, to twice the radius the stopping test
+   allows around the optimum (tol over the least curvature of -J, plus
+   what J's f64 rounding hides); reference_check measures them on both
+   grids. reference_check on 12 cells of the 100-cell grid;
+   then evaluate_solution(backend="torch") on its integer budgets (8
+   seeds x 10,000 queries), one M/G/2 cell and one SJF cell, which launch
+   des_lindley, des_free_server and des_windowed (their launches join the
+   des_lanes rows as launches_sweeps): each bitwise equal to the lanes'
+   plain versions and within 1e-9 of the NumPy backend. Times print,
+   none is gated.
 
 The des_lanes line, the card's name and power limit, then, as the line
 before the last, the kernels' JSON summary (with each kernel's
@@ -2411,6 +2434,322 @@ def des_phase(dev, flush) -> list:
     return rows
 
 
+# --------------------------------------------------------------- sweeps
+# tests/test_solver_grid.py's acceptance grid (lambda x alpha x l_max), its
+# three PGA-fallback cells, a c-grid (c 1 / 2 / 4, lambda in 5 steps up to
+# 0.9 c lambda_sat) and a finer grid of 10,000 cells on the same axes
+SWEEP_LAMS = np.linspace(0.05, 0.5, 10)
+SWEEP_ALPHAS = np.array([10.0, 20.0, 30.0, 45.0, 60.0])
+SWEEP_LMAXS = np.array([1024.0, 32768.0])
+SWEEP_FINE = (100, 50)        # the 10,000-cell grid's lambdas x alphas
+SWEEP_CS = (1, 2, 4)
+SWEEP_REF_CELLS = 12          # reference_check cells of the 100-cell grid
+SWEEP_TOL = 1e-6              # continuous optima (the grid's contract)
+SWEEP_EXACT = ("lengths_int", "feasible", "stable", "used_pga",
+               "fp_converged", "fp_iterations", "pga_iterations")
+# Armijo cells that stop apart on the card and the host (pga_iterations
+# differ or l* >= SWEEP_TOL apart) are held to J(l*) within
+# SWEEP_ARMIJO_RTOL and to the gap the stopping test allows (see
+# _check_apart), at the grid's tol and re-solved at SWEEP_TIGHT_TOL
+SWEEP_ARMIJO_RTOL = 1e-9
+SWEEP_GRID_TOL = 1e-8         # solve_grid's default tol
+SWEEP_TIGHT_TOL = 1e-12
+SWEEP_EVAL_SEEDS, SWEEP_EVAL_QUERIES = 8, 10_000
+SWEEP_EVAL_RTOL = 1e-9        # card lanes against the NumPy backend
+SWEEP_EVAL_REASON = (
+    "each lane is bitwise equal to its plain version, here run on the "
+    "host (backend torch, device cpu); the NumPy backend's Lindley pass is "
+    "the cumsum form, which rounds otherwise, so it is held at rtol 1e-9, "
+    "atol 1e-12")
+
+
+def _sweep_grids(tasks) -> dict:
+    from repro_torch.sweeps import saturation_rate
+
+    c = np.array(SWEEP_CS, dtype=np.float64)[:, None]
+    lam_c = np.linspace(0.18, 0.9, 5)[None, :] * c * saturation_rate(tasks)
+    return {
+        "grid_100": ((SWEEP_LAMS[:, None, None], SWEEP_ALPHAS[None, :, None],
+                      SWEEP_LMAXS[None, None, :]), {}),
+        "pga_fallback": ((np.array([1.0, 2.0, 3.0]), 30.0, 32768.0), {}),
+        "c_grid": ((lam_c, 30.0, 32768.0), {"c": c}),
+        "grid_10000": ((np.linspace(0.05, 0.5, SWEEP_FINE[0])[:, None, None],
+                        np.linspace(10.0, 60.0, SWEEP_FINE[1])[None, :, None],
+                        SWEEP_LMAXS[None, None, :]), {}),
+    }
+
+
+def _apart(got, want) -> np.ndarray:
+    """Flat indices of the Armijo cells that stopped apart: their
+    pga_iterations differ or their optima are SWEEP_TOL or more apart."""
+    g, w = got.ravel(), want.ravel()
+    gap = np.max(np.abs(g.lengths_cont - w.lengths_cont), axis=-1)
+    return np.flatnonzero(w.used_pga & g.used_pga & (
+        (g.pga_iterations != w.pga_iterations) | (gap >= SWEEP_TOL)))
+
+
+def _grid_deviation(got, want) -> dict:
+    """The card's grid against the same grid on the host: how many cells
+    differ in each of SWEEP_EXACT (the iteration counts by how much), the
+    worst gap between the continuous optima over the cells the fixed point
+    solved, over the Armijo cells that stopped alike and over those that
+    stopped apart (``_apart``), and the worst relative gap between the
+    objective values J(l*)."""
+    gap = np.max(np.abs(got.lengths_cont - want.lengths_cont),
+                 axis=-1).ravel()
+    pga = want.used_pga.ravel()
+    apart = np.zeros_like(pga)
+    apart[_apart(got, want)] = True
+    out = {"max_abs_cont_deviation": float(gap.max()),
+           "max_abs_cont_deviation_fp_cells": float(np.max(gap[~pga],
+                                                           initial=0.0)),
+           "max_abs_cont_deviation_pga_cells_alike": float(np.max(
+               gap[pga & ~apart], initial=0.0)),
+           "max_abs_cont_deviation_pga_cells_apart": float(np.max(
+               gap[apart], initial=0.0)),
+           "pga_cells_apart": int(apart.sum()),
+           "max_rel_value_deviation": float(np.max(
+               np.abs(got.value_cont - want.value_cont)
+               / np.abs(want.value_cont)))}
+    for f in SWEEP_EXACT:
+        a, b = getattr(got, f), getattr(want, f)
+        diff = a != b
+        if diff.ndim > got.lam.ndim:
+            diff = diff.any(axis=-1)
+        out[f"cells_differing_{f}"] = int(diff.sum())
+        if f.endswith("iterations") and diff.any():
+            out[f"max_abs_diff_{f}"] = int(np.max(np.abs(
+                a.astype(np.int64) - b.astype(np.int64))))
+    return out
+
+
+def _check_grid(name: str, dev: dict) -> None:
+    """SWEEP_EXACT equal and optima within SWEEP_TOL, but for the Armijo
+    cells that stopped apart (``_apart``): their pga_iterations may differ
+    and their optima are held by ``_check_apart``. Every cell's J(l*)
+    within SWEEP_ARMIJO_RTOL."""
+    for f in SWEEP_EXACT:
+        allowed = dev["pga_cells_apart"] if f == "pga_iterations" else 0
+        check(dev[f"cells_differing_{f}"] <= allowed,
+              f"{name}: {f} differs between the card and the host: {dev}")
+    for key in ("max_abs_cont_deviation_fp_cells",
+                "max_abs_cont_deviation_pga_cells_alike"):
+        check(dev[key] < SWEEP_TOL, f"{name}: continuous optima apart: {dev}")
+    check(dev["max_rel_value_deviation"] <= SWEEP_ARMIJO_RTOL,
+          f"{name}: objective values apart: {dev}")
+
+
+def _stop_radius(tasks, cell: dict, tol: float) -> tuple:
+    """How far from the optimum the Armijo stopping test may leave l*:
+    ``(tol / mu + sqrt(2 eps / mu), mu, |grad J|)`` at the cell's l*, with
+    mu the least curvature of -J over the free coordinates (``torch.func``
+    Hessian of the cell's objective) and eps = N x f64 eps x |J|, what a
+    sum of N terms of J can round by. The test |dl| / eta <= tol stops
+    once |grad J| <= tol (within tol / mu of the optimum), or once the
+    Armijo test can no longer see J rise, the step backtracks to nothing
+    and dl rounds to 0 (within sqrt(2 eps / mu))."""
+    from repro_torch.core import Problem, ServerParams
+    from repro_torch.core.mgc import objective_mgc
+    from repro_torch.core.objective import objective
+
+    prob = Problem(tasks=tasks, server=ServerParams(
+        cell["lam"], cell["alpha"], cell["l_max"]))
+    c = int(cell["c"])
+    fn = (lambda v: objective(prob, v)) if c == 1 else \
+        (lambda v: objective_mgc(prob, v, c, c))
+    lengths = torch.as_tensor(cell["lengths_cont"], dtype=torch.float64)
+    h = torch.func.hessian(fn)(lengths).numpy()
+    g = torch.func.grad(fn)(lengths).numpy()
+    free = (cell["lengths_cont"] > 0) & (cell["lengths_cont"]
+                                         < cell["l_max"])
+    mu = float(np.linalg.eigvalsh(-h[np.ix_(free, free)]).min()) \
+        if free.any() else np.inf
+    eps = free.size * np.finfo(np.float64).eps * abs(float(fn(lengths)))
+    return (tol / mu + np.sqrt(2.0 * eps / mu), mu,
+            float(np.max(np.abs(g[free]), initial=0.0)))
+
+
+def _check_apart(name: str, tasks, sol, host, dev) -> dict:
+    """The Armijo cells of ``sol`` (card) and ``host`` that stopped apart,
+    each held to a gap between the two optima of at most twice the
+    ``_stop_radius`` at the host's l*, at the grid's tol and re-solved
+    on both at SWEEP_TIGHT_TOL, where the integer budgets and flags must
+    still agree. On an M/G/1 grid ``reference_check`` (the scalar solve at
+    the grid's tol) also measures those cells of the card's grid and of
+    the host's."""
+    from repro_torch.sweeps import reference_check, solve_grid
+
+    cells = _apart(sol, host)
+    flat = host.ravel()
+    axes = (flat.lam[cells], flat.alpha[cells], flat.l_max[cells])
+    kw = {"c": flat.c[cells], "tol": SWEEP_TIGHT_TOL}
+    (tight, card_ms), (tight_host, host_ms) = (
+        host_call(lambda d=d: solve_grid(tasks, *axes, device=d, **kw))
+        for d in (dev, "cpu"))
+    d = _grid_deviation(tight, tight_host)
+    for f in SWEEP_EXACT:
+        if not f.endswith("iterations"):
+            check(d[f"cells_differing_{f}"] == 0,
+                  f"{name}: re-solved, {f} differs: {d}")
+    rows = []
+    for i, cell in enumerate(cells.tolist()):
+        row = {"cell": cell, "lam": float(axes[0][i]),
+               "alpha": float(axes[1][i]), "l_max": float(axes[2][i]),
+               "pga_iterations_card_host": [
+                   int(sol.ravel().pga_iterations[cell]),
+                   int(flat.pga_iterations[cell])],
+               "tight_pga_iterations_card_host": [
+                   int(tight.pga_iterations[i]),
+                   int(tight_host.pga_iterations[i])]}
+        for key, (a, b, t) in {
+                "grid_tol": (sol.ravel(), flat, SWEEP_GRID_TOL),
+                "tight_tol": (tight, tight_host, SWEEP_TIGHT_TOL)}.items():
+            j = cell if key == "grid_tol" else i
+            gap = float(np.max(np.abs(a.lengths_cont[j]
+                                      - b.lengths_cont[j])))
+            radius, mu, grad_inf = _stop_radius(tasks, b.cell(j), t)
+            row[key] = {"tol": t, "gap": gap, "allowed": 2.0 * radius,
+                        "mu": mu, "host_grad_inf": grad_inf}
+            check(gap <= 2.0 * radius,
+                  f"{name}: cell {cell} at tol {t:g}: optima {gap:.3g} "
+                  f"apart, beyond {2.0 * radius:.3g}: {row}")
+        rows.append(row)
+    out = {"cells": rows, "tight_card_ms": card_ms,
+           "tight_host_ms": host_ms}
+    if np.all(host.c == 1):
+        out["reference_check_card"], out["reference_check_host"] = (
+            reference_check(tasks, g, cells=cells.tolist(), tol=np.inf)
+            for g in (sol, host))
+    return out
+
+
+def _eval_gap(got, want) -> tuple:
+    """(bitwise equal, worst absolute gap, every float field within
+    SWEEP_EVAL_RTOL, atol 1e-12) of two GridEvaluations."""
+    same, gap, close = True, 0.0, True
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if not isinstance(b, np.ndarray):
+            same &= a == b
+            continue
+        same &= bool(np.array_equal(a, b))
+        if b.dtype.kind == "f" and b.size:
+            check(np.array_equal(np.isfinite(a), np.isfinite(b)),
+                  f"{f.name}: finite cells differ")
+            fin = np.isfinite(b)
+            gap = max(gap, float(np.max(np.abs(a[fin] - b[fin]),
+                                        initial=0.0)))
+            close &= bool(np.allclose(a[fin], b[fin], rtol=SWEEP_EVAL_RTOL,
+                                      atol=1e-12))
+    return same, gap, close
+
+
+def sweeps_phase(dev) -> dict:
+    """``repro_torch.sweeps`` on the card: each grid of ``_sweep_grids``
+    solved twice on the card (cold, warm) and once on the host, held to
+    the host run (SWEEP_EXACT fields equal, optima within SWEEP_TOL; the
+    Armijo cells that stop apart re-solved at SWEEP_TIGHT_TOL, see
+    ``_check_grid``); ``reference_check`` on 12 of the 100-cell grid's
+    cells; then ``evaluate_solution(backend="torch")`` on its
+    integer budgets (8 seeds x 10,000 queries), one M/G/2 cell and one
+    SJF cell, the DES lanes' launches counted (0 just before, read just
+    after), each result bitwise against the lanes' plain versions and
+    within SWEEP_EVAL_RTOL of the NumPy backend. Times are printed, not
+    gated. Returns the phase's record with the lanes' launches."""
+    from repro_torch.core import paper_problem
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.sweeps import (evaluate_cells, evaluate_solution,
+                                    reference_check, solve_grid)
+
+    t_phase = time.perf_counter()
+    tasks = paper_problem().tasks
+    grids, sols, hosts = {}, {}, {}
+    for name, (args, kw) in _sweep_grids(tasks).items():
+        cold, warm = (host_call(lambda: solve_grid(tasks, *args, device=dev,
+                                                   **kw)) for _ in range(2))
+        sol, warm_ms = warm
+        host, cpu_ms = host_call(lambda: solve_grid(tasks, *args,
+                                                    device="cpu", **kw))
+        grids[name] = {
+            "cells": sol.n_cells, "shape": list(sol.shape),
+            "card_cold_ms": cold[1], "card_warm_ms": warm_ms,
+            "cpu_ms": cpu_ms, "cells_per_s_card": sol.n_cells / warm_ms * 1e3,
+            "cells_per_s_cpu": sol.n_cells / cpu_ms * 1e3,
+            "max_fp_iterations": int(sol.fp_iterations.max()),
+            "max_pga_iterations": int(sol.pga_iterations.max()),
+            "used_pga": int(sol.used_pga.sum()),
+            "feasible": int(sol.feasible.sum()),
+            "stable": int(sol.stable.sum()),
+            **_grid_deviation(sol, host)}
+        print(json.dumps({"grid": name, **grids[name]}), flush=True)
+        sols[name], hosts[name] = sol, host
+    for name, row in grids.items():
+        _check_grid(name, row)
+        check(bool(np.all(sols[name].feasible & sols[name].stable)),
+              f"{name}: unstable")
+    for name in grids:
+        if grids[name]["pga_cells_apart"]:
+            apart = _check_apart(name, tasks, sols[name], hosts[name], dev)
+            grids[name]["pga_cells_apart_resolved"] = apart
+            print(json.dumps({"grid": name, "apart": apart}), flush=True)
+
+    flat = sols["grid_100"].ravel()
+    pga_cells = np.flatnonzero(flat.used_pga)
+    fp_cells = np.flatnonzero(~flat.used_pga)
+    half = SWEEP_REF_CELLS // 2
+    cells = np.concatenate([
+        pga_cells[np.linspace(0, len(pga_cells) - 1, half).astype(int)],
+        fp_cells[np.linspace(0, len(fp_cells) - 1, half).astype(int)]])
+    ref_dev, ref_ms = host_call(lambda: reference_check(
+        tasks, sols["grid_100"], cells=cells.tolist()))
+
+    # the evaluation's main path: counts set to 0 just before, read after
+    sol = sols["grid_100"]
+    cell = flat.cell(int(np.flatnonzero((flat.lam == SWEEP_LAMS[5])
+                                        & (flat.alpha == 30.0)
+                                        & (flat.l_max == 32768.0))[0]))
+    ekw = dict(n_seeds=SWEEP_EVAL_SEEDS, n_queries=SWEEP_EVAL_QUERIES,
+               seed=0)
+    cases = {
+        "grid_100": lambda **b: evaluate_solution(tasks, sol, **ekw, **b),
+        "mgc_c2": lambda **b: evaluate_cells(
+            tasks, 2.0 * cell["lam"], cell["lengths_int"], c=2, **ekw, **b),
+        "sjf": lambda **b: evaluate_cells(
+            tasks, cell["lam"], cell["lengths_int"], discipline="sjf",
+            **ekw, **b)}
+    torch.cuda.synchronize()
+    reset_launches()
+    card = {k: host_call(lambda f=f: f(backend="torch", device=dev))
+            for k, f in cases.items()}
+    launches = {k: LAUNCHES[k] for k in ("des_lindley", "des_free_server",
+                                         "des_windowed")}
+    check(all(n > 0 for n in launches.values()),
+          f"a DES lane did not launch in the evaluation: {launches}")
+    evaluation = {}
+    for k, f in cases.items():
+        plain, plain_ms = host_call(lambda: f(backend="torch", device="cpu"))
+        numpy_ev, numpy_ms = host_call(lambda: f(backend="numpy"))
+        same, _, _ = _eval_gap(card[k][0], plain)
+        check(same, f"evaluation {k}: the card's lanes differ from their "
+                    "plain versions")
+        same_np, gap, close = _eval_gap(card[k][0], numpy_ev)
+        check(close, f"evaluation {k}: {gap} from NumPy")
+        ev = card[k][0]
+        evaluation[k] = {"cells": int(ev.lam.shape[0]), "card_ms": card[k][1],
+                         "plain_host_ms": plain_ms, "numpy_ms": numpy_ms,
+                         "bitwise_plain": same, "bitwise_numpy": same_np,
+                         "max_abs_gap_numpy": gap,
+                         "covered": int(np.sum(ev.covered))}
+    out = {"phase": "sweeps", "grids": grids,
+           "reference_check": {"cells": cells.tolist(),
+                               "max_abs_deviation": ref_dev, "ms": ref_ms},
+           "evaluation": evaluation, "eval_rtol_numpy": SWEEP_EVAL_RTOL,
+           "eval_reason": SWEEP_EVAL_REASON, "launches": launches,
+           "seconds": time.perf_counter() - t_phase}
+    print(json.dumps(out))
+    return out
+
+
 REPLACES = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:98"),
@@ -2546,6 +2885,10 @@ def main() -> int:
     by_path["qwen3-8b serve"] = served_8b["launches"]
     free()
     calibration_phase(served_8b, occupancy)
+    swept = sweeps_phase(dev)["launches"]
+    for row in des_lanes:
+        if row["name"] in swept:
+            row["launches_sweeps"] = swept[row["name"]]
     # each kernel's launches on the path that runs it: the slot kernels on
     # qwen3's DecodeEngine serve, the paged kernel on the continuous serve,
     # each scan on its family's serve

@@ -3,12 +3,15 @@
 * ``round_policy``      -- componentwise rounding (eq 40), O(N)
 * ``exhaustive_policy`` -- floor/ceil 2^N search (eq 39), exact over the
                            floor/ceil lattice cell; the JAX package's
-                           ``vmap`` over candidates is a batch dimension here
+                           ``vmap`` over candidates is a leading batch
+                           dimension here
 * ``coordinate_policy`` -- beyond-paper: coordinate descent over integers,
                            scalable to large N, >= rounding by construction
 
 plus the paper's rounding-loss lower bound J_bar(l*) (eq 41), giving the
-sandwich  J(l*) >= J(l_int_opt) >= J(l_int) >= J_bar(l*).
+sandwich  J(l*) >= J(l_int_opt) >= J(l_int) >= J_bar(l*). Rounding, the
+exhaustive search and the bound take ``[..., N]`` optima of a problem with
+per-cell scalars (``sweeps.solve_grid``).
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .fixed_point import project
 from .objective import objective
 from .params import Problem, as_control
 from .queueing import service_moments
@@ -30,29 +34,48 @@ class IntegerResult(NamedTuple):
     method: str
 
 
-def round_policy(problem: Problem, l_star: Tensor) -> IntegerResult:
-    """Componentwise rounding (eq 40), clipped to [0, l_max]."""
-    l_int = torch.clamp(torch.round(l_star), 0.0, problem.server.l_max)
-    return IntegerResult(l_int, objective(problem, l_int), "round")
+def round_policy(problem: Problem, l_star: Tensor,
+                 objective_fn=None) -> IntegerResult:
+    """Componentwise rounding (eq 40), clipped to [0, l_max].
+
+    ``objective_fn(problem, lengths)`` defaults to the paper's P-K
+    objective; the M/G/c grid solver passes the c-server wait term.
+    """
+    if objective_fn is None:
+        objective_fn = objective
+    l_int = project(torch.round(l_star), problem.server.l_max)
+    return IntegerResult(l_int, objective_fn(problem, l_int), "round")
 
 
 def exhaustive_policy(problem: Problem, l_star: Tensor,
-                      max_tasks: int = 20) -> IntegerResult:
+                      max_tasks: int = 20,
+                      objective_fn=None) -> IntegerResult:
     """Exact floor/ceil search (eq 39) over all 2^N combinations, evaluated
-    as one ``[2^N, N]`` batch; unstable candidates score -inf."""
+    as one batch with the candidates on a new leading axis
+    (``[2^N, ..., N]``, so per-cell scalars still line up with the cell
+    axes); unstable candidates score -inf. The first best candidate wins,
+    as ``argmax`` does in the JAX package. ``objective_fn`` as in
+    :func:`round_policy`.
+    """
+    if objective_fn is None:
+        objective_fn = objective
     n = problem.tasks.n_tasks
     if n > max_tasks:
         raise ValueError(
             f"2^{n} exhaustive search refused (> 2^{max_tasks}); "
             "use round_policy for large N")
     l_max = problem.server.l_max
-    lo = torch.clamp(torch.floor(l_star), 0.0, l_max)
-    hi = torch.clamp(torch.ceil(l_star), 0.0, l_max)
-    bits = (torch.arange(2 ** n)[:, None] >> torch.arange(n)[None, :]) & 1
-    cand = torch.where(bits == 1, hi[None, :], lo[None, :])     # [2^N, N]
-    vals = objective(problem, cand)
-    best = int(torch.argmax(vals))
-    return IntegerResult(cand[best], vals[best], "exhaustive")
+    lo = project(torch.floor(l_star), l_max)
+    hi = project(torch.ceil(l_star), l_max)
+    idx = torch.arange(2 ** n, device=l_star.device)
+    bits = (idx[:, None] >> torch.arange(n, device=l_star.device)) & 1
+    bits = bits.view((2 ** n,) + (1,) * (lo.ndim - 1) + (n,))
+    cand = torch.where(bits == 1, hi, lo)                   # [2^N, ..., N]
+    vals = objective_fn(problem, cand)                      # [2^N, ...]
+    best = torch.argmax(vals, dim=0)
+    lengths = torch.take_along_dim(cand, best[None, ..., None], dim=0)[0]
+    value = torch.take_along_dim(vals, best[None], dim=0)[0]
+    return IntegerResult(lengths, value, "exhaustive")
 
 
 def coordinate_policy(problem: Problem, l_star: Tensor,
@@ -95,7 +118,7 @@ def rounding_lower_bound(problem: Problem, l_star: Tensor) -> Tensor:
     tasks, sp = problem.tasks, problem.server
     lam = sp.lam
     m = service_moments(tasks, l_star, lam)
-    c_max = torch.max(tasks.c)
+    c_max = torch.amax(tasks.c, dim=-1)
     acc = torch.sum(tasks.pi * (tasks.A * (1.0 - torch.exp(
         -tasks.b * (l_star - 1.0))) + tasks.D), dim=-1)
     denom = 1.0 - lam * (m.es + c_max)

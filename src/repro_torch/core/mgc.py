@@ -26,7 +26,7 @@ import torch
 
 from ..compat import CONTROL_DTYPE
 from .fixed_point import project
-from .params import Problem, as_control
+from .params import Problem, as_control, control_like
 from .queueing import service_moments
 
 Tensor = torch.Tensor
@@ -45,8 +45,8 @@ def erlang_c(c, a: Tensor, c_max: int | None = None) -> Tensor:
     """
     if c_max is None:
         c_max = int(c)
-    c_t = torch.as_tensor(c)
-    a = as_control(a)
+    a = torch.as_tensor(a, dtype=CONTROL_DTYPE)
+    c_t = torch.as_tensor(c, device=a.device)
     b = torch.ones_like(a)
     for k in range(1, int(c_max) + 1):
         b = torch.where(k <= c_t, a * b / (k + a * b), b)
@@ -93,10 +93,10 @@ def mean_wait_mgc(problem: Problem, lengths: Tensor, c_servers,
     m = service_moments(tasks, lengths, sp.lam)
     cv2 = torch.clamp(m.es2 / torch.clamp(m.es ** 2, min=1e-30) - 1.0,
                       min=0.0)
-    c = torch.as_tensor(c_servers, dtype=CONTROL_DTYPE)
+    c = control_like(c_servers, m.es)
     a = sp.lam * m.es
     rho = a / c
-    pw = erlang_c(torch.as_tensor(c_servers), a,
+    pw = erlang_c(torch.as_tensor(c_servers, device=a.device), a,
                   c_max if c_max is not None else int(c.max()))
     w_mmc = pw * m.es / (c * torch.clamp(1.0 - rho, min=1e-9))
     return _wait_factor(cv2, rho, c, correction) * w_mmc
@@ -137,7 +137,7 @@ def objective_mgc(problem: Problem, lengths: Tensor, c_servers,
     At c = 1 it equals ``core.objective.objective``."""
     tasks, sp = problem.tasks, problem.server
     m = service_moments(tasks, lengths, sp.lam)
-    rho = m.rho / torch.as_tensor(c_servers, dtype=CONTROL_DTYPE)
+    rho = m.rho / control_like(c_servers, m.rho)
     acc = torch.sum(tasks.pi * tasks.accuracy(lengths), dim=-1)
     j = (sp.alpha * acc
          - mean_wait_mgc(problem, lengths, c_servers, c_max, correction)

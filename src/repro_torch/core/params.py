@@ -10,6 +10,8 @@ Implements the data model of Section II of the paper:
 All arrays are float64 tensors of shape ``[N]`` on the host, where ``N`` is
 the number of task types: the control plane is a handful of scalars, so it
 stays on the CPU in double precision whatever device the model runs on.
+The solvers follow their inputs' device, so ``sweeps.solve_grid`` runs
+them on the card over a whole grid of cells.
 """
 from __future__ import annotations
 
@@ -26,6 +28,42 @@ Tensor = torch.Tensor
 def as_control(x) -> Tensor:
     """Host float64 tensor of ``x`` (the control plane's one number type)."""
     return torch.as_tensor(x, dtype=CONTROL_DTYPE, device="cpu")
+
+
+def control_like(x, ref: Tensor) -> Tensor:
+    """Float64 tensor of ``x`` on ``ref``'s device: the constructor for
+    host numbers that meet tensors which may live on the card
+    (``sweeps.solve_grid`` runs the solvers there)."""
+    return torch.as_tensor(x, dtype=CONTROL_DTYPE, device=ref.device)
+
+
+def take_cells(problem: "Problem", idx: Tensor, n_cells: int) -> "Problem":
+    """``problem`` restricted to the cells ``idx`` of its one cell axis of
+    ``n_cells``: every per-cell tensor (``[C]`` server scalars, ``[C, N]``
+    task arrays of a NamedTuple such as ``sweeps.TaskArrays``) is indexed,
+    the rest is shared."""
+    def cut(x, ndim):
+        if isinstance(x, Tensor) and x.ndim == ndim \
+                and x.shape[0] == n_cells:
+            return x[idx]
+        return x
+
+    tasks, sp = problem.tasks, problem.server
+    if hasattr(tasks, "_replace"):
+        tasks = tasks._replace(**{f: cut(getattr(tasks, f), 2)
+                                  for f in tasks._fields})
+    server = dataclasses.replace(sp, lam=cut(sp.lam, 1),
+                                 alpha=cut(sp.alpha, 1),
+                                 l_max=cut(sp.l_max, 1))
+    return dataclasses.replace(problem, tasks=tasks, server=server)
+
+
+def per_task(x):
+    """A per-cell scalar lined up against the trailing task axis:
+    ``x[..., None]`` for a tensor with cell axes (``sweeps.solve_grid``
+    gives every cell its own lambda, alpha, l_max and c as ``[C]``
+    tensors), ``x`` itself for a number or a 0-d tensor."""
+    return x[..., None] if isinstance(x, Tensor) and x.ndim else x
 
 
 @dataclasses.dataclass(frozen=True)

@@ -379,7 +379,8 @@ def _grid_budgets(problem: Problem, policies, lams, clip_unstable: bool,
     Returns ``(names, lengths [L, P, N], rho [L, P], masked [L, P])``;
     ``masked`` marks cells still at rho >= c after a *requested* clip (a
     baseline past saturation cannot be projected into the slab — see
-    ``core.queueing.stabilizable``) — their simulation is skipped and
+    :func:`~repro_torch.core.queueing.stabilizable`) — their simulation
+    is skipped and
     their statistics NaN. ``c_servers`` threads the M/G/c stability
     condition rho / c < 1 through the clip and the mask, so multi-server
     cells are not spuriously clipped against the single-server slab

@@ -314,8 +314,8 @@ def summarize_impatience(res: ImpatienceResult, arrivals, services,
     ``goodput`` is served customers per unit time over ``horizon``
     (default: last arrival); ``lam_eff`` is the *empirical*
     effective arrival rate — total attempts issued per unit time — the
-    measured counterpart of the JAX package's
-    ``core.queueing.retry_fixed_point``.
+    measured counterpart of
+    :func:`~repro_torch.core.queueing.retry_fixed_point`.
     ``rho_eff`` is the offered effective load per server (service demand
     of every attempt, orphans included when the policy orphans them,
     per unit time): above 1 the queue is in the metastable overload

@@ -1272,3 +1272,66 @@ def test_des_missing_build_raises(cuda_device, monkeypatch, tmp_path):
         des_scan.lindley(a, s)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         des_scan.windowed(a, s, a, 4)
+
+
+# ------------------------------------------------------------------ sweeps
+@pytest.mark.cuda
+def test_solve_grid_on_card_matches_host(cuda_device):
+    """The PGA-fallback cells (lambda 1-3) and a c-grid solved on the card
+    and on the host: integer budgets, flags and per-cell iteration counts
+    equal, continuous optima within the grid's 1e-6."""
+    import numpy as np
+
+    from repro_torch.core import paper_problem
+    from repro_torch.sweeps import solve_grid
+
+    tasks = paper_problem().tasks
+    for args, kw in (((np.array([1.0, 2.0, 3.0]), 30.0, 32768.0), {}),
+                     ((np.array([0.3, 0.6, 1.2]), 30.0, 32768.0),
+                      {"c": np.array([1, 2, 4])})):
+        card = solve_grid(tasks, *args, device=cuda_device, **kw)
+        host = solve_grid(tasks, *args, device="cpu", **kw)
+        for f in ("lengths_int", "feasible", "stable", "used_pga",
+                  "fp_iterations", "pga_iterations"):
+            np.testing.assert_array_equal(getattr(card, f),
+                                          getattr(host, f), err_msg=f)
+        np.testing.assert_allclose(card.lengths_cont, host.lengths_cont,
+                                   rtol=0, atol=1e-6)
+        assert card.used_pga.all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fifo", "mgc", "sjf"])
+def test_evaluate_cells_lanes_match_plain(cuda_device, case):
+    """``evaluate_cells(backend="torch")`` on the card: bitwise equal to
+    the lanes' plain versions (``device="cpu"``), within 1e-9 of the NumPy
+    backend, and the case's lane launched."""
+    import numpy as np
+
+    from repro_torch.core import paper_problem
+    from repro_torch.sweeps import evaluate_cells
+
+    tasks = paper_problem().tasks
+    lengths = np.array([0.0, 340.0, 0.0, 0.0, 345.0, 30.0])
+    kw = {"fifo": dict(lam=np.array([0.1, 0.3])),
+          "mgc": dict(lam=np.array([0.3, 0.6]), c=np.array([1, 2])),
+          "sjf": dict(lam=np.array([0.3]), discipline="sjf")}[case]
+    lane = {"fifo": "des_lindley", "mgc": "des_free_server",
+            "sjf": "des_windowed"}[case]
+    lam = kw.pop("lam")
+    common = dict(n_seeds=4, n_queries=3000, seed=2, **kw)
+    reset_launches()
+    card = evaluate_cells(tasks, lam, lengths, backend="torch",
+                          device=cuda_device, **common)
+    assert LAUNCHES[lane] > 0
+    plain = evaluate_cells(tasks, lam, lengths, backend="torch",
+                           device="cpu", **common)
+    host = evaluate_cells(tasks, lam, lengths, **common)
+    for f in dataclasses.fields(card):
+        a, b, h = (getattr(x, f.name) for x in (card, plain, host))
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+            if a.dtype.kind == "f":
+                np.testing.assert_allclose(a, h, rtol=1e-9, err_msg=f.name)
+        else:
+            assert a == b == h, f.name
