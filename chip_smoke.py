@@ -14,7 +14,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    shuffled block pool; the two scans at rwkv6-1.6b's and zamba2-7b's
    prefill shapes; flash and slot decode at zamba2's head_dim 112 and the
    FFN at its d 3584 / d_ff 14336, and each at qwen3-8b's G 4 and
-   d 4096 / d_ff 12288; flash on a padded admission group of
+   d 4096 / d_ff 12288 (flash also at S 8, the replay engine lane's
+   prefill); flash on a padded admission group of
    8 x 113 and the FFN at T = 8, the continuous engine's 8 decode slots,
    and at the largest T the drains' batched admission prefills, group
    size x padded length, printed; starcoder2-3b's flash at S 4200 with
@@ -193,12 +194,33 @@ Phases, in order; any failure ends the run with a non-zero exit:
    des_lanes rows as launches_sweeps): each bitwise equal to the lanes'
    plain versions and within 1e-9 of the NumPy backend. Times print,
    none is gated.
+16. replay_engine (right after the calibration, on phase 13's qwen3-8b
+   weights, one init for both): the closed loop's engine lane,
+   ReplayHarness.run_engine through a fresh DecodeEngine (capacity
+   2048, chunk 16) on 32 requests at lambda 0.5 with 8-token prompts,
+   blocks of 8, l_max 128, l_init 64, half the budgets jittered; the
+   re-solves on the card. Every decode's budget enforced, the waits
+   obeying Lindley on the measured services, one capture across the
+   budgets, flash, slot decode (once a layer a step) and the FFN
+   launched, a re-solve run; the LatencyCalibrator's (t0_k, c_k) of the
+   identified tasks printed beside phase 14's fit;
+17. replay: the closed loop's virtual lane on tests/test_replay.py's
+   convergence run (20,000 requests at lambda 0.1, blocks of 512), the
+   controller's solve_grid once on the card and once on the host: the
+   same budgets in every block, bitwise the same waits, more than 10
+   re-solves, final budgets within 16 tokens of the oracle; each side's
+   re-solve ms (median, p90) and wall time;
+18. replay_drift: a lambda step (6,000 requests at 0.1, 6,000 at 0.3)
+   in drift mode with an admission ladder, a tracer, a metrics registry
+   and a straggler fault, re-solving on the card: the alarm fires after
+   the step, the deployed budgets shrink, every completed request's span
+   tree is whole; the drift history, ladder levels and sheds printed.
 
 The des_lanes line, the card's name and power limit, then, as the line
 before the last, the kernels' JSON summary (with each kernel's
 launches on every serve path that ran it, the int8 serve, the int8 paged
-drain, the hooks serve, every continuous serve, the recurrent drains and
-the window check among them); the last line is
+drain, the hooks serve, every continuous serve, the recurrent drains, the
+window check and the replay engine lane among them); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -291,7 +313,16 @@ DRAIN_BUDGET = 12         # the recurrent drain's budget (no answer tokens)
 PIN_BUDGET = 64           # budget cap of the eager-vs-graph pin's requests
 OCCUPANCIES = (1, 2, 4, 8)  # continuous engines timed for fit_step_latency
 HOOKS_QUERIES = 48        # the hooks serve's stream, at 2x the service rate
-
+# the closed loop (serving.replay): tests/test_replay.py's runs
+REPLAY_QUERIES = 20_000       # test_closed_loop_converges_to_oracle's trace
+REPLAY_BLOCK = 512
+REPLAY_ORACLE_TOL = 16        # tokens, the reference test's tolerance
+DRIFT_QUERIES = 6_000         # each side of the lambda step (x1, then x3)
+DRIFT_BLOCK = 256
+ENGINE_QUERIES = 32           # the engine lane on qwen3-8b
+ENGINE_LAM = 0.5              # its trace's arrival rate (1/s)
+ENGINE_L_MAX = 128
+ENGINE_PROMPT = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -491,6 +522,8 @@ def kernel_cases(dev, flush):
     for dtype, S in ((torch.bfloat16, 113), (torch.float32, 37)):
         flash_case(dtype, S, Z_H, 1, Z_HD, main=False)     # zamba2's block
         flash_case(dtype, S, Q8_H, Q8_G, HD, main=False)   # qwen3-8b's
+    # the replay engine lane's prefill: qwen3-8b, one prompt of 8 tokens
+    flash_case(torch.bfloat16, ENGINE_PROMPT, Q8_H, Q8_G, HD, main=False)
     # starcoder2-3b's prefill past its window (the window check's prompt),
     # and stablelm-3b's head width 80 at G = 1 (padded to 128 in the CTA)
     flash_case(torch.bfloat16, SC_S, SC_H, SC_G, HD, main=False,
@@ -1140,7 +1173,8 @@ def decode_launches_expected(cfg, steps: int) -> dict:
 
 
 def serve_phase(dev, arch: str, kernels: tuple, mode: str = "virtual",
-                n_layers=None, kv_cache_dtype: str = "model") -> dict:
+                n_layers=None, kv_cache_dtype: str = "model",
+                params=None) -> dict:
     """The main path of ``arch`` at full width in bf16: allocator ->
     scheduler -> LLMServer -> DecodeEngine, whose chunks replay the
     captured decode step. Each of ``kernels`` must be launched on it, the
@@ -1151,7 +1185,9 @@ def serve_phase(dev, arch: str, kernels: tuple, mode: str = "virtual",
     the graph path, tokens equal. ``mode="wall"`` times each request on
     the host clock (the calibration's points). ``kv_cache_dtype="int8"``
     serves on the int8 cache and adds its KV bytes against the
-    full-precision cache's and the dequantise's device time a step."""
+    full-precision cache's and the dequantise's device time a step.
+    ``params``: weights already on the card (seed 0) to serve with, in
+    place of a fresh init."""
     from repro_torch.configs import get_config
     from repro_torch.core import paper_problem
     from repro_torch.kernels import LAUNCHES, reset_launches
@@ -1164,7 +1200,8 @@ def serve_phase(dev, arch: str, kernels: tuple, mode: str = "virtual",
                               kv_cache_dtype=kv_cache_dtype)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    params = init_params(cfg, seed=0, device=dev)
+    if params is None:
+        params = init_params(cfg, seed=0, device=dev)
     params_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     engine = DecodeEngine(cfg, params, cache_capacity=2048, chunk=16)
@@ -2750,6 +2787,273 @@ def sweeps_phase(dev) -> dict:
     return out
 
 
+def _timed_resolves(ctl) -> list:
+    """Wrap ``ctl.resolve`` to record each call's host ms and whether it
+    deployed a solution. On the card the re-solve ends in the host read
+    of its result, so the clock covers finished device work."""
+    calls = []
+    resolve = ctl.resolve
+
+    def timed():
+        t0 = time.perf_counter()
+        deployed = resolve()
+        calls.append(((time.perf_counter() - t0) * 1e3, deployed))
+        return deployed
+    ctl.resolve = timed
+    return calls
+
+
+def _resolve_stats(calls) -> dict:
+    """The deployed re-solves' ms: the first apart, then median and p90
+    of all of them."""
+    ms = [t for t, deployed in calls if deployed]
+    if not ms:
+        return {"n": 0, "calls": len(calls)}
+    return {"n": len(ms), "calls": len(calls), "first_ms": ms[0],
+            "median_ms": float(np.median(ms)),
+            "p90_ms": float(np.percentile(ms, 90)),
+            "total_ms": float(np.sum(ms))}
+
+
+def replay_phase(dev) -> dict:
+    """The closed loop's virtual lane, re-solving on the card: the
+    reference's convergence run (paper_problem, a stationary trace of
+    REPLAY_QUERIES at lambda 0.1, seed 7, blocks of REPLAY_BLOCK) once
+    with the controller's solve_grid on the card and once on the host.
+    Checks: the same budgets deployed in every block, hence bitwise the
+    same services and waits; more than 10 re-solves; final budgets
+    within REPLAY_ORACLE_TOL tokens of core.solve's oracle. Prints each
+    side's re-solve ms (median, p90) and the run's wall time."""
+    from repro_torch.core import paper_problem, solve
+    from repro_torch.queueing_sim import Segment, generate_drift_trace
+    from repro_torch.serving import ReplayConfig, ReplayHarness
+
+    prob = paper_problem()
+    trace = generate_drift_trace(
+        prob.tasks, [Segment(REPLAY_QUERIES, prob.server.lam)], seed=7)
+    oracle = solve(prob).lengths_int.astype(np.int64)
+    runs = {}
+    for side, device in (("card", dev), ("host", "cpu")):
+        h = ReplayHarness(prob, ReplayConfig(block_size=REPLAY_BLOCK),
+                          device=device)
+        calls = _timed_resolves(h.controller)
+        t0 = time.perf_counter()
+        res = h.run_virtual(trace)
+        runs[side] = {"res": res, "wall_s": time.perf_counter() - t0,
+                      "resolve": _resolve_stats(calls)}
+    card, host = runs["card"]["res"], runs["host"]["res"]
+    same_blocks = (len(card.blocks) == len(host.blocks) and all(
+        np.array_equal(a.budgets, b.budgets)
+        for a, b in zip(card.blocks, host.blocks)))
+    same_arrays = all(np.array_equal(getattr(card, f), getattr(host, f))
+                      for f in ("budgets", "services", "waits", "correct"))
+    gap = int(np.max(np.abs(card.final_budgets - oracle)))
+    out = {"phase": "replay", "queries": REPLAY_QUERIES,
+           "block_size": REPLAY_BLOCK, "n_blocks": len(card.blocks),
+           "n_resolves": card.n_resolves,
+           "n_resolves_host": host.n_resolves,
+           "resolve_card": runs["card"]["resolve"],
+           "resolve_host": runs["host"]["resolve"],
+           "wall_s_card": runs["card"]["wall_s"],
+           "wall_s_host": runs["host"]["wall_s"],
+           "final_budgets": card.final_budgets.tolist(),
+           "oracle_budgets": oracle.tolist(), "max_gap_to_oracle": gap,
+           "same_budgets_every_block": same_blocks,
+           "bitwise_services_waits": same_arrays,
+           "estimator": card.estimator_state,
+           "report": dataclasses.asdict(card.report(prob))}
+    print(json.dumps(out), flush=True)
+    check(same_blocks, "replay: the card and the host deployed other "
+                       "budgets in some block")
+    check(same_arrays, "replay: waits or services differ between card "
+                       "and host")
+    check(card.n_resolves == host.n_resolves > 10,
+          f"replay: {card.n_resolves} / {host.n_resolves} re-solves")
+    check(gap <= REPLAY_ORACLE_TOL,
+          f"replay: final budgets {gap} tokens from the oracle")
+    return out
+
+
+def replay_drift_phase(dev) -> dict:
+    """The drift mode with every hook: a lambda step (DRIFT_QUERIES at
+    lambda0 = 0.1, then DRIFT_QUERIES at 3 lambda0, seed 13, blocks of
+    DRIFT_BLOCK), resolve_mode="drift", an AdmissionController on the
+    oracle budgets (each re-solve also re-projects its ladder: a second
+    solve_grid over the ladder's caps), a Tracer, a MetricsRegistry and
+    a StragglerDecode fault; the re-solves on the card. Checks: the drift
+    alarm fires after the step, the deployed budget total falls under the
+    heavier load, every completed request's span tree is whole. Prints
+    the drift history, the ladder's levels and the sheds."""
+    from repro_torch.core import paper_problem, solve
+    from repro_torch.faults import StragglerDecode
+    from repro_torch.obs import (MetricsRegistry, Tracer,
+                                 validate_request_trees)
+    from repro_torch.queueing_sim import Segment, generate_drift_trace
+    from repro_torch.serving import (AdmissionConfig, AdmissionController,
+                                     ReplayConfig, ReplayHarness)
+
+    prob = paper_problem()
+    lam0 = prob.server.lam
+    trace = generate_drift_trace(
+        prob.tasks, [Segment(DRIFT_QUERIES, lam0),
+                     Segment(DRIFT_QUERIES, 3 * lam0)], seed=13)
+    oracle = solve(prob).lengths_int.astype(np.int64)
+    cfg = ReplayConfig(block_size=DRIFT_BLOCK, est_halflife=512.0,
+                       resolve_mode="drift")
+    tracer, metrics = Tracer(), MetricsRegistry()
+    h = ReplayHarness(prob, cfg, tracer=tracer, metrics=metrics,
+                      admission=AdmissionController(
+                          oracle, prob.server.l_max, AdmissionConfig()),
+                      faults=StragglerDecode(0.02, 2.0, seed=1), device=dev)
+    calls = _timed_resolves(h.controller)
+    t0 = time.perf_counter()
+    res = h.run_virtual(trace)
+    wall = time.perf_counter() - t0
+    before = [b for b in res.blocks
+              if (b.index + 1) * DRIFT_BLOCK <= DRIFT_QUERIES][-1]
+    end = res.blocks[-1]
+    alarms = [b.index for b in res.blocks
+              if b.drift is not None and b.drift["fired"]]
+    after = [i for i in alarms if i * DRIFT_BLOCK >= DRIFT_QUERIES]
+    t1 = time.perf_counter()
+    trees = validate_request_trees(
+        tracer.to_chrome(), np.flatnonzero(res.served_mask()).tolist())
+    trees_s = time.perf_counter() - t1
+    snap = metrics.as_dict()
+    out = {"phase": "replay_drift", "queries": 2 * DRIFT_QUERIES,
+           "block_size": DRIFT_BLOCK, "lam": [lam0, 3 * lam0],
+           "n_resolves": res.n_resolves,
+           "resolved_blocks": [b.index for b in res.blocks if b.resolved],
+           "resolve_card": _resolve_stats(calls), "wall_s": wall,
+           "alarm_blocks": alarms, "step_block": DRIFT_QUERIES // DRIFT_BLOCK,
+           "drift_history": [
+               {"block": b.index, **{k: b.drift[k] for k in (
+                   "fired", "reason", "n", "predicted_wait",
+                   "measured_wait", "rel_err", "rho", "strikes",
+                   "overload")}}
+               for b in res.blocks if b.drift is not None],
+           "levels": [b.level for b in res.blocks],
+           "sheds": [b.n_shed for b in res.blocks],
+           "admission": {k: v for k, v in res.admission.items()
+                         if k != "occupancy"},
+           "budgets_before_step": before.budgets.tolist(),
+           "budgets_end": end.budgets.tolist(),
+           "lam_hat_before_step": before.estimator["lam"],
+           "lam_hat_end": end.estimator["lam"],
+           "trees": trees, "trees_validate_s": trees_s,
+           "metrics": {k: snap[k] for k in ("replay.wait", "replay.service",
+                                            "replay.system_time")}}
+    print(json.dumps(out), flush=True)
+    check(bool(after), f"replay_drift: no alarm after the step "
+                       f"(alarms at blocks {alarms})")
+    check(end.budgets.sum() < before.budgets.sum(),
+          f"replay_drift: budgets {before.budgets.tolist()} -> "
+          f"{end.budgets.tolist()} under 3x the load")
+    return out
+
+
+def replay_engine_phase(dev, cfg, params, calibration: dict) -> dict:
+    """The closed loop's engine lane on the paper's model: ``run_engine``
+    over ``cfg`` (qwen3-8b, full width, bf16; ``params`` the wall serve's
+    weights) through a fresh DecodeEngine (capacity 2048, chunk 16, its
+    own graph cache), ENGINE_QUERIES requests at ENGINE_LAM with prompts
+    of ENGINE_PROMPT tokens, blocks of 8, ServerParams(l_max=128),
+    l_init 64, half the budgets jittered, min_services 8; re-solves on
+    the card. Launches and graph counts set to 0 just before run_engine
+    (its warm-up decode included) and read after. Checks: every decode's
+    n_reasoning == min(l, n_generated) and n_generated == l; the waits
+    follow Lindley on the measured services; one capture of the decode
+    step across all budgets; flash, slot decode and the FFN launched,
+    slot decode once a layer a step; at least one re-solve. Prints the
+    LatencyCalibrator's (t0_k, c_k) for each identified task beside
+    the calibration phase's fit from the same process."""
+    from repro_torch.core import Problem, ServerParams, paper_problem
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.obs import graph_hooks
+    from repro_torch.queueing_sim import Segment, generate_drift_trace
+    from repro_torch.serving import DecodeEngine, ReplayConfig, ReplayHarness
+
+    paper = paper_problem()
+    prob = Problem(tasks=paper.tasks, server=ServerParams(
+        ENGINE_LAM, paper.server.alpha, float(ENGINE_L_MAX)))
+    engine = DecodeEngine(cfg, params, cache_capacity=2048, chunk=16)
+    decodes = []                         # (budget, n_generated, n_reasoning)
+    generate = engine.generate
+
+    def recorded(prompts, budgets, **kw):
+        res = generate(prompts, budgets, **kw)
+        decodes.append((int(budgets[0]), int(res["n_generated"][0]),
+                        int(res["n_reasoning"][0])))
+        return res
+    engine.generate = recorded
+    trace = generate_drift_trace(
+        prob.tasks, [Segment(ENGINE_QUERIES, ENGINE_LAM)], seed=41,
+        prompt_len_range=(ENGINE_PROMPT, ENGINE_PROMPT))
+    h = ReplayHarness(prob, ReplayConfig(block_size=8, l_init=64,
+                                         explore_frac=0.5, min_services=8),
+                      engine=engine, device=dev)
+    calls = _timed_resolves(h.controller)
+    torch.cuda.synchronize()
+    graph_hooks.reset()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = h.run_engine(trace, prompt_len=ENGINE_PROMPT, max_extra_tokens=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    graph = graph_stats("engine.chunk", engine.chunk)
+    engine.generate = generate
+    start = res.arrivals + res.waits
+    finish = start + res.services
+    lindley = bool(start[0] == res.arrivals[0] and np.allclose(
+        start[1:], np.maximum(res.arrivals[1:], finish[:-1]), rtol=0,
+        atol=1e-9))
+    est = res.estimator_state
+    fit = calibration["card_fit"]["latency"]
+    learned = [{"task": prob.tasks.names[k], "t0_s": est["t0"][k],
+                "c_s_per_token": est["c"][k],
+                "n": int(np.sum(res.types == k))}
+               for k in range(prob.tasks.n_tasks) if est["identified"][k]]
+    out = {"phase": "replay_engine", "arch": cfg.arch_id,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "queries": ENGINE_QUERIES,
+           "lam": ENGINE_LAM, "l_max": ENGINE_L_MAX,
+           "prompt_len": ENGINE_PROMPT,
+           "engine": "DecodeEngine(cache_capacity=2048, chunk=16)",
+           "wall_s": wall, "n_resolves": res.n_resolves,
+           "resolve_card": _resolve_stats(calls),
+           "block_budgets": [b.budgets.tolist() for b in res.blocks],
+           "budgets": res.budgets.tolist(),
+           "services_s": res.services.tolist(),
+           "waits_s": res.waits.tolist(),
+           "decodes": len(decodes), "lindley": lindley,
+           "learned_latency": learned,
+           "calibration_fit": {"t0_s": fit["t0_s"],
+                               "c_s_per_token": fit["c_s_per_token"],
+                               "from": "calibration phase, same process"},
+           "estimator": est, "measured": res.measured(),
+           "graph": graph, "launches": launches}
+    print(json.dumps(out), flush=True)
+    check(len(decodes) == ENGINE_QUERIES + 1,
+          f"replay_engine: {len(decodes)} decodes for {ENGINE_QUERIES} "
+          "requests and the warm-up")
+    for l, n_gen, n_reason in decodes:
+        check(n_reason == min(l, n_gen) and n_gen == l,
+              f"replay_engine: budget {l}, {n_gen} generated, {n_reason} "
+              "reasoning")
+    check(lindley, "replay_engine: the waits break the Lindley recursion")
+    check(graph["captures"] == 1,
+          f"replay_engine: decode graph captured {graph['captures']} times")
+    check_dense_launches(cfg, launches, "replay_engine")
+    n = decode_launches_expected(cfg, graph["steps"])["decode_attention"]
+    check(launches.get("decode_attention", 0) == n,
+          f"replay_engine: decode_attention launched "
+          f"{launches.get('decode_attention', 0)} times in {graph['steps']} "
+          f"steps, expected {n}")
+    check(res.n_resolves >= 1, "replay_engine: no re-solve ran")
+    return out
+
+
 REPLACES = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:98"),
@@ -2881,11 +3185,22 @@ def main() -> int:
     paged_model_phase(dev, cfg32, params32)
     del params32
     free()
-    served_8b = serve_phase(dev, "qwen3-8b", attn_kernels, mode="wall")
+    # the paper's model at full width: its weights serve the wall-clock
+    # serve, then the closed loop's engine lane, one init for both
+    cfg8 = get_config("qwen3-8b")
+    params8 = init_params(cfg8, seed=0, device=dev)
+    served_8b = serve_phase(dev, "qwen3-8b", attn_kernels, mode="wall",
+                            params=params8)
     by_path["qwen3-8b serve"] = served_8b["launches"]
     free()
-    calibration_phase(served_8b, occupancy)
+    calibration = calibration_phase(served_8b, occupancy)
+    by_path["qwen3-8b replay engine"] = replay_engine_phase(
+        dev, cfg8, params8, calibration)["launches"]
+    del params8
+    free()
     swept = sweeps_phase(dev)["launches"]
+    replay_phase(dev)
+    replay_drift_phase(dev)
     for row in des_lanes:
         if row["name"] in swept:
             row["launches_sweeps"] = swept[row["name"]]

@@ -9,8 +9,13 @@ Every entry point of the port takes an explicit ``device`` and defaults to
 ``"cuda"``. :func:`resolve_device` raises when the card is missing rather
 than carrying on on the CPU; the CPU is used only when a caller asks for it
 (the tests do).
+
+:func:`cap_xdist_threads` keeps parallel test workers from oversubscribing
+the host's cores.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -43,6 +48,19 @@ def acc(t: torch.Tensor) -> torch.Tensor:
     tensors, as in the JAX package, and f64 for f64 ones, which only a run
     that measures f32 rounding against an f64 evaluation feeds them."""
     return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def cap_xdist_threads() -> None:
+    """Cap torch's intra-op threads at one in a pytest-xdist worker.
+
+    Each worker would otherwise start one thread per core, so ``-n 6`` on
+    eight cores runs some fifty threads on eight cores, and the port's
+    test files take several times longer than alone. Outside xdist
+    (``PYTEST_XDIST_WORKER`` unset) nothing changes. The port's test
+    modules call this at import.
+    """
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        torch.set_num_threads(1)
 
 
 def torch_dtype(name: str) -> torch.dtype:

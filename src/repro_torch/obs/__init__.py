@@ -10,17 +10,20 @@
 - :mod:`~repro_torch.obs.graph_hooks`: capture, replay and host-read
   counters of the decode step's CUDA graph (the counterpart of
   ``repro.obs.jax_hooks``).
+- :mod:`~repro_torch.obs.monitor`: predicted-vs-measured wait drift alarm
+  feeding the replay controller's re-solve cadence (the port of
+  ``repro.obs.monitor``).
 
 Producers hold their tracer and registry as ``None`` by default and guard
 each recording site with one ``is not None`` check; the ``Null*`` classes
-cover unconditional call sites. The JAX package's drift monitor
-(``obs/monitor``) is not ported yet.
+cover unconditional call sites.
 """
 from . import graph_hooks
 from .metrics import (DEFAULT_PERCENTILES, NULL_REGISTRY, Counter, Gauge,
                       HistogramSnapshot, MetricsRegistry, NullHistogram,
                       NullRegistry, StreamingHistogram, histogram_per_lane,
                       merge_snapshots)
+from .monitor import DriftMonitor, DriftReport, predicted_wait_quantile
 from .trace import (NULL_TRACER, VIRTUAL_PID, WALL_PID, NullTracer, Tracer,
                     monotonic, spans_by_request, timecall,
                     validate_request_trees)
@@ -32,4 +35,5 @@ __all__ = [
     "StreamingHistogram", "HistogramSnapshot", "merge_snapshots",
     "histogram_per_lane", "Counter", "Gauge", "MetricsRegistry",
     "NullRegistry", "NullHistogram", "NULL_REGISTRY", "DEFAULT_PERCENTILES",
+    "DriftMonitor", "DriftReport", "predicted_wait_quantile",
 ]

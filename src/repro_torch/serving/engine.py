@@ -193,12 +193,15 @@ class DecodeEngine:
     def _generate_chunks(self, token, cache, total, budgets, eos_token,
                          T, chunk):
         """Replayed generation: ``chunk`` replays of the captured step,
-        then one host read per chunk."""
+        then one host read per chunk. A batch with nothing to generate
+        (every budget 0, no answer tokens) is its prefill alone."""
+        n_gen = np.zeros(token.shape[0], dtype=np.int32)
+        if T == 0:
+            return np.zeros((token.shape[0], 0), np.int32), n_gen
         key, st, step = self._prepare(token, cache, total, budgets,
                                       eos_token, chunk)
         pieces = []
         emitted = 0
-        n_gen = np.zeros(token.shape[0], dtype=np.int32)
         tracer = self.tracer
         while emitted < T:
             ctx = (tracer.span("engine.decode_chunk", cat="engine",

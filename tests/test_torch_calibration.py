@@ -35,6 +35,9 @@ from repro_torch.core import mgc as tmgc
 from repro_torch.models import decode_step, forward, reduced
 from repro_torch.serving import DecodeEngine
 from repro_torch.weights import from_jax_params
+from repro_torch.compat import cap_xdist_threads
+
+cap_xdist_threads()   # one torch thread a worker under pytest-xdist
 
 F64 = dict(rtol=1e-12, atol=1e-12)
 rng = np.random.default_rng

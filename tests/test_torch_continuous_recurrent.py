@@ -40,6 +40,9 @@ from repro_torch.configs import get_config
 from repro_torch.models import reduced
 from repro_torch.serving import ContinuousBatchingEngine
 from repro_torch.weights import from_jax_params
+from repro_torch.compat import cap_xdist_threads
+
+cap_xdist_threads()   # one torch thread a worker under pytest-xdist
 
 ARCHS = ["rwkv6-1.6b", "zamba2-7b", "starcoder2-3b"]
 ENGINE = dict(max_slots=3, capacity=128)

@@ -12,6 +12,9 @@ from repro.queueing_sim import generate_stream as j_stream
 from repro_torch import core as tcore
 from repro_torch.queueing_sim import generate_stream as t_stream
 from repro_torch.queueing_sim import pk_prediction
+from repro_torch.compat import cap_xdist_threads
+
+cap_xdist_threads()   # one torch thread a worker under pytest-xdist
 
 REL = 1e-9
 

@@ -22,6 +22,9 @@ from repro.compat import enable_x64
 from repro.core import fixed_point as jfp
 from repro_torch import core as tcore
 from repro_torch.core import fixed_point as tfp
+from repro_torch.compat import cap_xdist_threads
+
+cap_xdist_threads()   # one torch thread a worker under pytest-xdist
 
 # the packages export the function ``objective`` under the module's name
 jobj = importlib.import_module("repro.core.objective")

@@ -45,6 +45,9 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.fused_ffn import fused_ffn, fused_ffn_plain
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_plain
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+from repro_torch.compat import cap_xdist_threads
+
+cap_xdist_threads()   # one torch thread a worker under pytest-xdist
 
 
 @pytest.fixture

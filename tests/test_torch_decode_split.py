@@ -15,6 +15,9 @@ import torch
 
 from repro_torch.kernels.decode_attention import (SPLIT_MAX, SplitPlan,
                                                   split_plan)
+from repro_torch.compat import cap_xdist_threads
+
+cap_xdist_threads()   # one torch thread a worker under pytest-xdist
 
 GRID = list(itertools.product(
     [1, 2, 8, 32],                          # B

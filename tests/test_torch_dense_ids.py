@@ -37,6 +37,9 @@ from repro_torch.models import (decode_step, forward, init_paged_cache,
 from repro_torch.models.attention import _decode_valid
 from repro_torch.serving import DecodeEngine
 from repro_torch.weights import from_jax_params
+from repro_torch.compat import cap_xdist_threads
+
+cap_xdist_threads()   # one torch thread a worker under pytest-xdist
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 LAYER_TOL = dict(rtol=1e-6, atol=1e-6)

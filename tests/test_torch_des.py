@@ -30,6 +30,9 @@ from repro_torch import queueing_sim as T
 from repro_torch.data import predictor as tpred
 from repro_torch.kernels import des_scan
 from repro_torch.obs import metrics as tmetrics
+from repro_torch.compat import cap_xdist_threads
+
+cap_xdist_threads()   # one torch thread a worker under pytest-xdist
 
 LSTAR = np.array([0.0, 340.0, 0.0, 0.0, 345.0, 30.0])
 POLICIES = {"optimal": LSTAR, "uniform_100": np.full(6, 100.0),

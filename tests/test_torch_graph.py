@@ -43,6 +43,9 @@ from repro_torch.obs import graph_hooks
 from repro_torch.serving import (ContinuousBatchingEngine, DecodeEngine,
                                  LLMServer, ServerConfig)
 from repro_torch.weights import from_jax_params
+from repro_torch.compat import cap_xdist_threads
+
+cap_xdist_threads()   # one torch thread a worker under pytest-xdist
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 ARCHS = ["qwen3-0.6b", "rwkv6-1.6b", "zamba2-7b"]

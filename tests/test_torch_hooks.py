@@ -39,6 +39,9 @@ from repro_torch.obs import metrics as tmetrics
 from repro_torch.obs import trace as ttrace
 from repro_torch.serving import BlockAllocator, ContinuousBatchingEngine
 from repro_torch.weights import from_jax_params
+from repro_torch.compat import cap_xdist_threads
+
+cap_xdist_threads()   # one torch thread a worker under pytest-xdist
 
 
 @pytest.fixture(scope="module")

@@ -50,6 +50,9 @@ from repro_torch.models.attention import (_dequantize, _quantize,
                                           attn_decode_stacked)
 from repro_torch.serving import ContinuousBatchingEngine, DecodeEngine
 from repro_torch.weights import from_jax_params
+from repro_torch.compat import cap_xdist_threads
+
+cap_xdist_threads()   # one torch thread a worker under pytest-xdist
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 INT8_LOGIT_TOL = 1e-3

@@ -13,6 +13,9 @@ import pytest
 from repro import core as jcore
 from repro.compat import enable_x64
 from repro_torch import core as tcore
+from repro_torch.compat import cap_xdist_threads
+
+cap_xdist_threads()   # one torch thread a worker under pytest-xdist
 
 METHODS = ("exhaustive", "coordinate", "round")
 TOL = dict(rel=1e-12, abs=1e-12)

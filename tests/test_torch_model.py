@@ -23,6 +23,9 @@ from repro_torch.configs import get_config
 from repro_torch.models import decode_step, forward, init_params, reduced
 from repro_torch.serving import DecodeEngine
 from repro_torch.weights import from_jax_params
+from repro_torch.compat import cap_xdist_threads
+
+cap_xdist_threads()   # one torch thread a worker under pytest-xdist
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -30,6 +30,9 @@ from repro_torch.models import (PagedKVCache, decode_step, init_paged_cache,
                                 reduced)
 from repro_torch.serving import BlockAllocator, ContinuousBatchingEngine
 from repro_torch.weights import from_jax_params
+from repro_torch.compat import cap_xdist_threads
+
+cap_xdist_threads()   # one torch thread a worker under pytest-xdist
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

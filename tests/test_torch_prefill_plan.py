@@ -17,6 +17,9 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_ffn as ff
+from repro_torch.compat import cap_xdist_threads
+
+cap_xdist_threads()   # one torch thread a worker under pytest-xdist
 
 SMS = 132
 SMEM_MAX = 227 * 1024

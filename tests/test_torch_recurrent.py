@@ -40,6 +40,9 @@ from repro_torch.launch import serve
 from repro_torch.models import (decode_step, forward, init_decode_cache,
                                 init_params, mamba2, reduced, rwkv6)
 from repro_torch.weights import from_jax_params
+from repro_torch.compat import cap_xdist_threads
+
+cap_xdist_threads()   # one torch thread a worker under pytest-xdist
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 ARCHS = ["rwkv6-1.6b", "zamba2-7b"]

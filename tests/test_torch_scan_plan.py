@@ -31,6 +31,9 @@ import torch
 from repro_torch.kernels import rwkv6_scan as rk
 from repro_torch.kernels import scan_plan as sp
 from repro_torch.kernels import ssd_scan as sk
+from repro_torch.compat import cap_xdist_threads
+
+cap_xdist_threads()   # one torch thread a worker under pytest-xdist
 
 SMS = 132
 SMEM_MAX = 227 * 1024

@@ -23,6 +23,9 @@ from repro.kernels.ssd_scan import ssd_scan as j_ssd
 from repro_torch.kernels import LAUNCHES, _build, ops, ref, reset_launches
 from repro_torch.kernels import rwkv6_scan as rk
 from repro_torch.kernels import ssd_scan as sk
+from repro_torch.compat import cap_xdist_threads
+
+cap_xdist_threads()   # one torch thread a worker under pytest-xdist
 
 JD = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TD = {"float32": torch.float32, "bfloat16": torch.bfloat16}

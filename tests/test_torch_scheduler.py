@@ -14,6 +14,9 @@ from repro_torch import core as tcore
 from repro_torch import serving as tserving
 from repro_torch.data.predictor import LengthPredictor as TPredictor
 from repro_torch.queueing_sim import ALL_DISCIPLINES
+from repro_torch.compat import cap_xdist_threads
+
+cap_xdist_threads()   # one torch thread a worker under pytest-xdist
 
 ADMISSIONS = [(1, None), (4, None), (5, 7), (0, None), (1, 400), (4, 0),
               (5, None), (2, None), (3, 50), (1, None)]

@@ -26,6 +26,9 @@ from repro_torch.configs import get_config
 from repro_torch.launch import serve
 from repro_torch.models import init_params, reduced
 from repro_torch.weights import from_jax_params
+from repro_torch.compat import cap_xdist_threads
+
+cap_xdist_threads()   # one torch thread a worker under pytest-xdist
 
 
 def _small(core):

@@ -27,6 +27,9 @@ import repro_torch.sweeps as tsweeps
 from repro import core as jcore
 from repro.compat import enable_x64
 from repro_torch import core as tcore
+from repro_torch.compat import cap_xdist_threads
+
+cap_xdist_threads()   # one torch thread a worker under pytest-xdist
 
 # (lam, alpha, l_max, calibration scale of c, of A) per cell
 CELLS = [(0.05, 30.0, 32768.0, 1.0, 1.0), (0.2, 30.0, 1024.0, 1.0, 1.0),
