@@ -22,7 +22,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    its window of 4096 and G 12 and its slot decode over a ring of 4096,
    full and wrapping past slot 0; stablelm-3b's head width 80 at G 1 in
    flash and slot decode; the FFN at T = 1 at olmo-1b's and stablelm-3b's
-   widths; both scans at B = 4, S = 64, a continuous admission group),
+   widths and at deepseek-moe-16b's shared experts (d 2048, d_ff 2816);
+   the FFN over the MoE's expert buffers [E, C, d], deepseek-moe-16b's 64
+   experts (d 2048, d_ff 1408, top-6) and granite-moe-3b-a800m's 40 (d
+   1536, d_ff 512, top-8), at C = T = 1 and 8 (dropless decode) and at a
+   113-token prompt's capacity (C 13 and 28), tokens routed at random,
+   with per-expert live rows (held on the live rows; the bound counts the
+   hit experts' weights only) and without; both scans at B = 4, S = 64, a
+   continuous admission group),
    with the maximum error beside its
    tolerance (for bf16 decode, per slot, in ulps of the slot's outputs;
    for the scans also the final state's, and their plans: channel slices
@@ -157,6 +164,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
    launched on olmo and stablelm, never on starcoder2), and starcoder2's
    continuous serve as in phase 11 (flash once a layer a group, slot
    decode once a layer a replayed step);
+12b. the MoE ids, deepseek-moe-16b (64 routed experts top-6 and 2 shared)
+   and granite-moe-3b-a800m (40 top-8): phase 4 in f32 (deepseek at
+   DS_F32_LAYERS of its 28 layers, granite at full depth), the kernel
+   path's run taking the reference path's expert choices at every layer
+   and token, with the rows whose own top-k differed counted
+   (ROUTING_REASON); phase 6 in bf16 at full width and depth (the FFN
+   launched with per-expert rows, once for the routed and, on deepseek,
+   once for the shared experts a layer, each prefill and replayed step,
+   counted exactly; one eager decode step under
+   torch.cuda.set_sync_debug_mode("error"), so no op reads the host;
+   the eager-vs-graph pin), and for deepseek the continuous serve on the
+   slot and on the paged engine on the same weights (admissions one
+   request a group under capacity dispatch; flash, decode and FFN
+   launches exact); each model freed before the next; each sub-phase's
+   seconds printed (moe_seconds);
 13. qwen3-8b, the paper's model: phases 4 and 5 in f32 at full width and
    4 of its 36 layers (QWEN3_8B_F32_LAYERS: the f32 weights and the
    reference path's copies), then phase 6 in bf16 at full width and full
@@ -308,6 +330,14 @@ SC_STEPS = 64             # the window check's decode steps, all past the wrap
 # stablelm-3b's: 32 kv heads of 80, one query head each; d / d_ff
 SL_H, SL_HD, SL_D, SL_DFF = 32, 80, 2560, 6912
 OLMO_D, OLMO_DFF = 2048, 8192  # olmo-1b's d / d_ff
+# the MoE ids: deepseek-moe-16b's 64 routed experts top-6 (d 2048, d_expert
+# 1408) and 2 shared (one SwiGLU of 2816); granite-moe-3b-a800m's 40 top-8
+# (d 1536, 512); a capacity prefill's buffer is C = int(S k 1.25 / E) rows
+# an expert at the stream's longest prompt
+DS_E, DS_K, DS_D, DS_F, DS_SHARED_F = 64, 6, 2048, 1408, 2816
+GR_E, GR_K, GR_D, GR_F = 40, 8, 1536, 512
+MOE_PREFILL_S = 113
+DS_F32_LAYERS = 4         # deepseek's f32 check (full depth: ~68 GB in f32)
 SCAN_GROUP_B, SCAN_GROUP_S = 4, 64  # a continuous admission group's scans
 DRAIN_BUDGET = 12         # the recurrent drain's budget (no answer tokens)
 PIN_BUDGET = 64           # budget cap of the eager-vs-graph pin's requests
@@ -713,8 +743,8 @@ def kernel_cases(dev, flush):
     # -- 4. fused SwiGLU FFN, E = 1: T = 1 at batch-1 decode, 8 at the
     # continuous engine's 8 slots, S at prefill, and the largest padded
     # admission group of the drains (group size x longest prompt)
-    def ffn_fields(T, D, DFF, dtype):
-        plan = fused_ffn.ffn_plan(1, T, D, DFF, dtype, _cuda.sm_count(0))
+    def ffn_fields(T, D, DFF, dtype, E=1):
+        plan = fused_ffn.ffn_plan(E, T, D, DFF, dtype, _cuda.sm_count(0))
         out = {"route": plan.route, "regime": plan.regime}
         if plan.route == "tensor_core":
             out.update(bm=plan.bm, ks_up=plan.ks_up, ks_down=plan.ks_down,
@@ -766,6 +796,69 @@ def kernel_cases(dev, flush):
     for dtype in (torch.bfloat16, torch.float32):        # decode, T = 1
         ffn_case(dtype, 1, OLMO_D, OLMO_DFF, main=False)  # olmo-1b's
         ffn_case(dtype, 1, SL_D, SL_DFF, main=False)      # stablelm-3b's
+    for T in (1, 8, MOE_PREFILL_S):                      # deepseek's shared
+        ffn_case(torch.bfloat16, T, DS_D, DS_SHARED_F, main=False)
+
+    # -- 4b. the MoE's expert buffers [E, C, d] with per-expert live rows
+    # (rows[e]): dropless decode (C = T, batch 1 and the continuous
+    # engine's 8 slots) and a capacity prefill of the longest prompt, each
+    # token routed to k distinct experts drawn at random; with rows (the
+    # kernel skips the tiles past rows[e], so the experts no token hit)
+    # and without (every expert and row computed). Held on the live rows.
+    route_gen = torch.Generator().manual_seed(1)
+
+    def moe_rows(E, k, T, C):
+        counts = torch.zeros(E, dtype=torch.int32)
+        for _ in range(T):
+            counts[torch.randperm(E, generator=route_gen)[:k]] += 1
+        return counts.clamp(max=C).to(dev)
+
+    def moe_ffn_case(dtype, E, k, T, D, DFF, with_rows):
+        C = T if T <= 8 else max(1, int(T * k * 1.25 / E))
+        rows = moe_rows(E, k, T, C)
+        x = randn(E, C, D, dtype=dtype)
+        wg = randn(E, D, DFF, dtype=dtype, scale=D ** -0.5)
+        wu = randn(E, D, DFF, dtype=dtype, scale=D ** -0.5)
+        wd = randn(E, DFF, D, dtype=dtype, scale=DFF ** -0.5)
+        r = rows if with_rows else None
+        ff, plain = fused_ffn.fused_ffn, fused_ffn.fused_ffn_plain
+        got = ff(x, wg, wu, wd, rows=r)
+        want = plain(x, wg, wu, wd)
+        live = (torch.arange(C, device=dev)[None] < rows[:, None]
+                if with_rows else torch.ones(E, C, dtype=torch.bool,
+                                             device=dev))
+        hit = int((rows > 0).sum()) if with_rows else E
+        n_live = int(rows.sum()) if with_rows else E * C
+        tol, reason = ((FFN_F32_TOL, FFN_F32_REASON)
+                       if dtype == torch.float32
+                       else (TOL[dtype], TOL_REASON[dtype]))
+        el = x.element_size()
+        # the live rows in and out, the hit experts' weights once each
+        nbytes = (2 * n_live * D + 3 * hit * D * DFF) * el
+        flops = 6 * n_live * D * DFF
+
+        def chain():
+            return torch.bmm(F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu),
+                             wd)
+        what = (f"rows: {n_live} live, {hit} of {E} experts hit"
+                if with_rows else "no rows: every expert and row")
+        record("fused_ffn", f"E={E} C={C} d={D} d_ff={DFF} (T={T} top-{k}; "
+               f"{what})", dtype, got[live], want[live], tol, reason,
+               lambda: ff(x, wg, wu, wd, rows=r),
+               lambda: plain(x, wg, wu, wd), chain, nbytes, flops,
+               main=False, one_call=False,
+               library="chain of 5 calls: torch.bmm x Wg, x Wu, silu, the "
+                       "product, bmm Wd (every expert and row)",
+               fields={**ffn_fields(C, D, DFF, dtype, E=E),
+                       "experts_hit": hit, "live_rows": n_live,
+                       "rows": None if r is None else r.tolist()})
+
+    for widths in ((DS_E, DS_K, DS_D, DS_F), (GR_E, GR_K, GR_D, GR_F)):
+        for T in (1, 8, MOE_PREFILL_S):
+            for with_rows in (True, False):
+                moe_ffn_case(torch.bfloat16, *widths[:2], T, *widths[2:],
+                             with_rows)
+        moe_ffn_case(torch.float32, *widths[:2], 1, *widths[2:], True)
 
     # -- 5. the scans at the recurrent prefills' shapes (B = 1), and at a
     # continuous admission group's (B = 4 equal-length prompts), in the
@@ -931,9 +1024,15 @@ def model_phase(dev, cfg, params) -> dict:
     from repro_torch.kernels.ssd_scan import ssd_scan_plain
 
     prompt = torch.as_tensor(np.arange(37) % 97 + 1, device=dev)[None]
-    ref, toks = _greedy_run(cfg, params, prompt, True)
+    moe_family = cfg.backbone_kind == "moe"
+    routes, pinned = [], {"rows": 0, "flips": 0, "max_flip_gap": 0.0}
+    with (_routing(record=routes) if moe_family
+          else contextlib.nullcontext()):
+        ref, toks = _greedy_run(cfg, params, prompt, True)
     reset_launches()
-    ker, ker_toks = _greedy_run(cfg, params, prompt, False, teacher=toks)
+    with (_routing(pin=routes, stats=pinned) if moe_family
+          else contextlib.nullcontext()):
+        ker, ker_toks = _greedy_run(cfg, params, prompt, False, teacher=toks)
     launches = dict(LAUNCHES)
     err = _max_err(ref, ker)
     agree = all(torch.equal(a[:, -1:].argmax(-1), b[:, -1:].argmax(-1))
@@ -942,10 +1041,14 @@ def model_phase(dev, cfg, params) -> dict:
            "dtype": "float32",
            "prompt_len": 37, "decode_steps": 8,
            "logits_max_abs_err": err,
-           "logits_max_abs": max(float(x.abs().max()) for x in ref),
+           "logits_max_abs": max(   # padded vocab columns hold -1e30
+               float(x[..., :cfg.vocab_size].abs().max()) for x in ref),
            "tol": LOGIT_TOL, "tol_reason": LOGIT_REASON,
            "greedy_tokens_agree": agree, "launches": launches}
-    scan_family = cfg.backbone_kind != "attn"
+    if moe_family:
+        out["routing"] = {**pinned, "why": ROUTING_REASON}
+        out["fused_ffn_expected"] = moe_ffn_per_layer(cfg) * cfg.n_layers * 9
+    scan_family = not cfg.has_attn_layers
     if scan_family:
         out["scan_in_situ"] = scan_in_situ(cfg, params, prompt)
         kernels = ops._rwkv, ops._ssd
@@ -963,8 +1066,19 @@ def model_phase(dev, cfg, params) -> dict:
             {"reference": ref[0], "kernel": ker[0], "plain": plain[0]})
     print(json.dumps(out))
     check(agree, f"{cfg.arch_id} model: greedy tokens differ")
-    if cfg.backbone_kind == "attn":
+    if cfg.has_attn_layers:
         check_dense_launches(cfg, launches, f"{cfg.arch_id} model")
+    if moe_family:
+        check(pinned["max_flip_gap"] <= ROUTING_GAP_TOL,
+              f"{cfg.arch_id} model: a top-k choice flipped at a gap of "
+              f"{pinned['max_flip_gap']} > {ROUTING_GAP_TOL}")
+        check(pinned["flips"] <= ROUTING_FLIP_SHARE * pinned["rows"],
+              f"{cfg.arch_id} model: {pinned['flips']} of "
+              f"{pinned['rows']} rows flipped a top-k choice")
+        check(launches.get("fused_ffn", 0) == out["fused_ffn_expected"],
+              f"{cfg.arch_id} model: fused_ffn launched "
+              f"{launches.get('fused_ffn', 0)} times, expected "
+              f"{out['fused_ffn_expected']} (prefill and 8 steps)")
     if scan_family:
         check(out["scan_in_situ"]["ok"],
               f"{cfg.arch_id} model: a scan in situ is out of tolerance "
@@ -982,6 +1096,83 @@ def model_phase(dev, cfg, params) -> dict:
               f"{w['kernel_f32_vs_f64_ref']} from the f64 reference, over "
               f"{RWKV_FLOOR_FACTOR} x the f32 evaluations' {f32_floor}")
     return out
+
+
+ROUTING_REASON = (
+    "the kernel path's run takes, at every MoE layer and token, the experts "
+    "the reference path chose (its weights renormalised from its own "
+    "probabilities): f32 rounding in other orders can flip a top-k choice "
+    "between two near-equal router probabilities, and one flipped expert "
+    "moves that token's residual by a whole expert's output. flips counts "
+    "the rows whose own choice (set or order) differed; max_flip_gap is the "
+    "largest, over those rows, of the smallest gap between neighbours among "
+    "the top k + 1 probabilities. The pin hides only near-ties: the check "
+    "fails at a flip whose gap exceeds ROUTING_GAP_TOL (1e-5; the largest "
+    "seen was 4.5e-8, granite-moe-3b-a800m, NVIDIA H100 80GB HBM3) or at "
+    "flips on more than ROUTING_FLIP_SHARE (1%) of the rows (1 in 1440 "
+    "seen), either of which says the kernel path's hidden state moved "
+    "enough to change a clear choice")
+ROUTING_GAP_TOL = 1e-5
+ROUTING_FLIP_SHARE = 0.01
+
+
+@contextlib.contextmanager
+def _routing(record=None, pin=None, stats=None):
+    """``models.moe._route`` patched: ``record`` gets each call's experts;
+    with ``pin`` each call takes the experts of the same call there, and
+    ``stats`` counts the rows whose own choice differed (ROUTING_REASON)."""
+    from repro_torch.models import moe
+
+    orig = moe._route
+    calls = iter(pin or ())
+
+    def route(cfg, p, x2d):
+        w, idx, probs = orig(cfg, p, x2d)
+        if record is not None:
+            record.append(idx.clone())
+            return w, idx, probs
+        want = next(calls)
+        stats["rows"] += idx.shape[0]
+        flip = (idx != want).any(-1)
+        n = int(flip.sum())
+        if n:
+            top = torch.topk(probs, cfg.moe.top_k + 1, -1).values
+            gap = (top[:, :-1] - top[:, 1:]).min(-1).values[flip]
+            stats["flips"] += n
+            stats["max_flip_gap"] = max(stats["max_flip_gap"],
+                                        float(gap.max()))
+            pw = probs.gather(1, want)
+            w = (pw / pw.sum(-1, keepdim=True).clamp(min=1e-9)).to(w.dtype)
+        return w, want, probs
+    moe._route = route
+    try:
+        yield
+    finally:
+        moe._route = orig
+
+
+def moe_ffn_per_layer(cfg) -> int:
+    """FFN launches of a MoE layer a forward or a decode step: the routed
+    experts' one, and the shared experts' one where there are any."""
+    return 1 + bool(cfg.moe.n_shared_experts)
+
+
+def check_step_reads_no_host(engine) -> None:
+    """One decode step over the engine's static buffers, run eagerly under
+    ``torch.cuda.set_sync_debug_mode("error")``: an op that reads the host
+    raises (and would have failed the step's capture)."""
+    logits, cache = engine.prefill(np.arange(24, dtype=np.int32)[None] % 97
+                                   + 1)
+    big = np.array([10 ** 6], np.int32)
+    _, _, step = engine._prepare(logits.argmax(-1), cache, big, big, None,
+                                 engine.chunk)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 def check_dense_launches(cfg, launches: dict, where: str) -> None:
@@ -1167,7 +1358,7 @@ def decode_launches_expected(cfg, steps: int) -> dict:
     application) a step; none for RWKV6."""
     if cfg.has_shared_attn:
         return {"decode_attention": cfg.n_layers // cfg.attn_every * steps}
-    if cfg.backbone_kind == "attn":
+    if cfg.has_attn_layers:
         return {"decode_attention": cfg.n_layers * steps}
     return {}
 
@@ -1208,7 +1399,7 @@ def serve_phase(dev, arch: str, kernels: tuple, mode: str = "virtual",
     graph_hooks.reset()
     engine.generate(np.ones((1, 16), np.int32), [4], max_extra_tokens=0)
     warm_captures = graph_hooks.capture_counts().get("engine.chunk", 0)
-    timers = {"prefill_s": 0.0, "generate_s": 0.0}
+    timers = {"prefill_s": 0.0, "generate_s": 0.0, "prefills": 0}
     prefill, generate = engine.prefill, engine.generate
 
     def timed_prefill(prompts):
@@ -1216,6 +1407,7 @@ def serve_phase(dev, arch: str, kernels: tuple, mode: str = "virtual",
         out = prefill(prompts)
         torch.cuda.synchronize()
         timers["prefill_s"] += time.perf_counter() - t0
+        timers["prefills"] += 1
         return out
 
     def timed_generate(*args, **kwargs):
@@ -1260,12 +1452,21 @@ def serve_phase(dev, arch: str, kernels: tuple, mode: str = "virtual",
            "params_gb": params_gb,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "prompt_lens": [q.prompt_len for q in stream.queries]}
+    if cfg.backbone_kind == "moe":
+        # routed (+ shared) a layer, each prefill and replayed step
+        out["fused_ffn_expected"] = moe_ffn_per_layer(cfg) * cfg.n_layers \
+            * (graph["steps"] + timers["prefills"])
     print(json.dumps(out))
     for name in kernels:
         check(launches.get(name, 0) > 0,
               f"{name} was launched 0 times on the {arch} main path")
-    if cfg.backbone_kind == "attn":
+    if cfg.has_attn_layers:
         check_dense_launches(cfg, launches, f"{arch} serve")
+    if cfg.backbone_kind == "moe":
+        check(launches.get("fused_ffn", 0) == out["fused_ffn_expected"],
+              f"{arch} serve: fused_ffn launched "
+              f"{launches.get('fused_ffn', 0)} times, expected "
+              f"{out['fused_ffn_expected']}")
     check(graph["captures"] == 1 and graph["host_reads_per_chunk"] == 1,
           f"{arch} serve: decode graph {graph}")
     for name, n in decode_launches_expected(cfg, graph["steps"]).items():
@@ -1275,6 +1476,8 @@ def serve_phase(dev, arch: str, kernels: tuple, mode: str = "virtual",
     engine.prefill, engine.generate = prefill, generate
     if cfg.kv_cache_dtype == "int8":
         out["kv_cache"] = int8_cache_cost(engine)
+    if cfg.backbone_kind == "moe":
+        check_step_reads_no_host(engine)
     out["pin"] = eager_graph_pin(engine, stream, srv.completed)
     print(json.dumps({**decode_step_breakdown(engine), "arch": arch,
                       "kv_cache_dtype": cfg.kv_cache_dtype}))
@@ -1476,6 +1679,9 @@ def continuous_serve_phase(dev, cfg, params, paged: bool = True) -> dict:
         check(all(len({lengths[r] for r in g}) == 1 for g in groups),
               f"{cfg.arch_id}: an admission group mixes prompt lengths "
               f"{groups}")
+    check(all(len(g) <= engine._batch_rows() for g in groups),
+          f"{cfg.arch_id}: an admission group exceeds "
+          f"{engine._batch_rows()} rows {groups}")
     n_groups, steps = len(groups), graph["steps"]
     if cfg.has_shared_attn:
         g = cfg.n_layers // cfg.attn_every
@@ -1488,6 +1694,9 @@ def continuous_serve_phase(dev, cfg, params, paged: bool = True) -> dict:
         decode = "paged_decode_attention" if paged else "decode_attention"
         expected = {"flash_attention": cfg.n_layers * n_groups,
                     decode: cfg.n_layers * steps}
+        if cfg.backbone_kind == "moe":
+            expected["fused_ffn"] = moe_ffn_per_layer(cfg) * cfg.n_layers \
+                * (n_groups + steps)
     kv = engine.cache.get("layers", engine.cache.get("shared"))
     out = {"phase": "continuous_serve", "arch": cfg.arch_id,
            "n_layers": cfg.n_layers, "dtype": cfg.dtype,
@@ -3180,6 +3389,37 @@ def main() -> int:
         free()
     by_path["starcoder2-3b continuous serve"] = slot_serve("starcoder2-3b")
     free()
+    # the MoE ids: deepseek-moe-16b (the f32 check at DS_F32_LAYERS of its
+    # 28 layers; bf16 at full depth through DecodeEngine, then the slot and
+    # the paged continuous engine on the same weights) and
+    # granite-moe-3b-a800m (the f32 check at full depth, the bf16 serve)
+    for arch, f32_layers in (("deepseek-moe-16b", DS_F32_LAYERS),
+                             ("granite-moe-3b-a800m", None)):
+        seconds = {}
+        t_moe = time.perf_counter()
+        cfg32, params32 = f32_model(arch, n_layers=f32_layers)
+        model_phase(dev, cfg32, params32)
+        del params32
+        free()
+        seconds["model"] = time.perf_counter() - t_moe
+        cfg_m = get_config(arch)
+        params_m = init_params(cfg_m, seed=0, device=dev)
+        by_path[f"{arch} serve"] = serve_phase(
+            dev, arch, attn_kernels, params=params_m)["launches"]
+        free()
+        seconds["serve"] = time.perf_counter() - t_moe - sum(seconds.values())
+        if arch == "deepseek-moe-16b":
+            for mode in ("slot", "paged"):
+                by_path[f"{arch} continuous serve ({mode})"] = \
+                    continuous_serve_phase(dev, cfg_m, params_m,
+                                           paged=mode == "paged")["launches"]
+                free()
+                seconds[f"continuous_{mode}"] = (time.perf_counter() - t_moe
+                                                 - sum(seconds.values()))
+        del params_m
+        free()
+        print(json.dumps({"phase": "moe_seconds", "arch": arch, **seconds,
+                          "total": time.perf_counter() - t_moe}))
     cfg32, params32 = f32_model("qwen3-8b", n_layers=QWEN3_8B_F32_LAYERS)
     model_phase(dev, cfg32, params32)
     paged_model_phase(dev, cfg32, params32)

@@ -45,6 +45,19 @@
 //   programmatic dependent of the gate/up GEMM: its CTAs start as the
 //   gate/up CTAs run, prefetch their weight tiles, and wait for h
 //   (griddepcontrol), which hides the launch gap between the two.
+//
+// Per-expert row counts (`rows`, an int32 [E] array on the device, or
+// null): for the MoE's dispatch buffer [E, C, d], where expert e holds
+// rows[e] live rows and the rest is padding. A CTA whose row tile starts
+// at or past rows[e] returns before it loads anything, so an expert no
+// token was sent to costs no weight bytes: the work follows the experts
+// the batch hit, as jax.lax.ragged_dot's does in the JAX package. All
+// CTAs of one tile share its row tile, so a skipped tile's split counter
+// is never touched and stays 0. Output rows at or past rows[e] are left
+// unwritten (rows of a live tile past rows[e] are computed from the
+// buffer's padding), and the caller reads none of them. The count is
+// read on the device: no host read, so the call can be captured in a
+// CUDA graph.
 // * scalar f32 FMAs (f32, where TF32 would fall outside the 1e-4
 //   tolerance, and shapes off the 16-byte grid): the first port's kernel.
 //   A CTA owns BT rows and a share of the 32-wide d_ff chunks, forms h in
@@ -74,7 +87,8 @@ template <typename T, int BT>
 __global__ void __launch_bounds__(kThreads)
     ffn_partial(const T* __restrict__ x, const T* __restrict__ wg,
                 const T* __restrict__ wu, const T* __restrict__ wd,
-                float* __restrict__ part, int n_rows, int d, int f) {
+                const int* __restrict__ rows, float* __restrict__ part,
+                int n_rows, int d, int f) {
   extern __shared__ float smem[];
   float* xs = smem;                         // [BT][d]
   float* ys = xs + BT * d;                  // [BT][d]  f32 partial of y
@@ -82,6 +96,7 @@ __global__ void __launch_bounds__(kThreads)
   float* hs = red + 2 * kParts * BT * kBF;  // [BT][kBF]
 
   const int e = blockIdx.z, t0 = blockIdx.y * BT, split = blockIdx.x;
+  if (rows != nullptr && t0 >= __ldg(rows + e)) return;   // no live row
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long E = gridDim.z;
   const T* xe = x + (long long)e * n_rows * d;
@@ -158,9 +173,14 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 __global__ void ffn_reduce(const float* __restrict__ part, T* __restrict__ y,
-                           long long n, int n_split) {
+                           const int* __restrict__ rows, long long n,
+                           int n_rows, int d, int n_split) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
+    if (rows != nullptr) {       // rows past rows[e] have no partials
+      const long long r = i / d;
+      if (r % n_rows >= __ldg(rows + r / n_rows)) continue;
+    }
     float s = 0.f;
     for (int p = 0; p < n_split; ++p) s += part[p * n + i];
     y[i] = from_f<T>(s);
@@ -169,8 +189,9 @@ __global__ void ffn_reduce(const float* __restrict__ part, T* __restrict__ y,
 
 template <typename T, int BT>
 cudaError_t launch(const void* x, const void* wg, const void* wu,
-                   const void* wd, void* y, void* scratch, int E, int n_rows,
-                   int d, int f, int n_split, cudaStream_t stream) {
+                   const void* wd, const int* rows, void* y, void* scratch,
+                   int E, int n_rows, int d, int f, int n_split,
+                   cudaStream_t stream) {
   const size_t smem = smem_bytes<BT>(d);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(ffn_partial<T, BT>, smem);
@@ -178,31 +199,32 @@ cudaError_t launch(const void* x, const void* wg, const void* wu,
   dim3 grid(n_split, (n_rows + BT - 1) / BT, E);
   ffn_partial<T, BT><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wg),
-      static_cast<const T*>(wu), static_cast<const T*>(wd),
+      static_cast<const T*>(wu), static_cast<const T*>(wd), rows,
       static_cast<float*>(scratch), n_rows, d, f);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long n = (long long)E * n_rows * d;
   const int blocks = (int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
   ffn_reduce<T><<<blocks, 256, 0, stream>>>(
-      static_cast<const float*>(scratch), static_cast<T*>(y), n, n_split);
+      static_cast<const float*>(scratch), static_cast<T*>(y), rows, n,
+      n_rows, d, n_split);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int bt, const void* x, const void* wg, const void* wu,
-                     const void* wd, void* y, void* scratch, int E,
-                     int n_rows, int d, int f, int n_split,
+                     const void* wd, const int* rows, void* y, void* scratch,
+                     int E, int n_rows, int d, int f, int n_split,
                      cudaStream_t stream) {
   switch (bt) {
     case 1:
-      return launch<T, 1>(x, wg, wu, wd, y, scratch, E, n_rows, d, f,
+      return launch<T, 1>(x, wg, wu, wd, rows, y, scratch, E, n_rows, d, f,
                           n_split, stream);
     case 4:
-      return launch<T, 4>(x, wg, wu, wd, y, scratch, E, n_rows, d, f,
+      return launch<T, 4>(x, wg, wu, wd, rows, y, scratch, E, n_rows, d, f,
                           n_split, stream);
     case 16:
-      return launch<T, 16>(x, wg, wu, wd, y, scratch, E, n_rows, d, f,
+      return launch<T, 16>(x, wg, wu, wd, rows, y, scratch, E, n_rows, d, f,
                            n_split, stream);
     default:
       return cudaErrorInvalidValue;
@@ -227,13 +249,15 @@ constexpr size_t gemm_smem_bytes() {
 // out[e] = epilogue(a[e] . b0[e] (, a[e] . b1[e])), a [E, M, K], b [E, K,
 // N], out [E, M, N]. GATED: out = round(silu(a b0) * (a b1)). grid: (N
 // tiles, M tiles, E * ks). part: f32 partials [ks, E, M, N] (twice when
-// GATED); counters: one per (e, m tile, n tile), zero between calls.
+// GATED); counters: one per (e, m tile, n tile), zero between calls;
+// rows: live rows of each expert (null: all M).
 template <int BM, bool GATED>
 __global__ void __launch_bounds__(kTcThreads)
     ffn_gemm(const bf16* __restrict__ a, const bf16* __restrict__ b0,
              const bf16* __restrict__ b1, bf16* __restrict__ out,
-             float* __restrict__ part, int* __restrict__ counters, int E,
-             int M, int K, int N, int ks) {
+             float* __restrict__ part, int* __restrict__ counters,
+             const int* __restrict__ rows, int E, int M, int K, int N,
+             int ks) {
   constexpr int NB = GATED ? 2 : 1;
   // BM 16: the 4 warps split the 64 columns (16 each); BM 64: the rows
   constexpr int WN = BM == 16 ? 16 : 64;     // columns of a warp tile
@@ -246,6 +270,13 @@ __global__ void __launch_bounds__(kTcThreads)
   const int nt = blockIdx.x, mt = blockIdx.y;
   const int e = blockIdx.z / ks, split = blockIdx.z % ks;
   const int n0 = nt * kBN, m0 = mt * BM;
+  if (rows != nullptr && m0 >= __ldg(rows + e)) {
+    // no live row in the tile: load nothing. A dependent down GEMM still
+    // waits for the gate/up GEMM, so the grid ends after it as without
+    // rows (and no later kernel can start before h is written)
+    if constexpr (!GATED) asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    return;
+  }
   const bf16* ae = a + (long long)e * M * K;
   const bf16* be[2] = {b0 + (long long)e * K * N,
                        GATED ? b1 + (long long)e * K * N : nullptr};
@@ -415,8 +446,9 @@ __global__ void __launch_bounds__(kTcThreads)
 // for h.
 template <int BM, bool GATED>
 cudaError_t launch_gemm(const bf16* a, const bf16* b0, const bf16* b1,
-                        bf16* out, float* part, int* counters, int E, int M,
-                        int K, int N, int ks, int pdl, cudaStream_t stream) {
+                        bf16* out, float* part, int* counters,
+                        const int* rows, int E, int M, int K, int N, int ks,
+                        int pdl, cudaStream_t stream) {
   constexpr size_t smem = gemm_smem_bytes<BM, GATED>();
   cudaError_t err = set_smem(ffn_gemm<BM, GATED>, smem);
   if (err != cudaSuccess) return err;
@@ -431,56 +463,60 @@ cudaError_t launch_gemm(const bf16* a, const bf16* b0, const bf16* b1,
   cfg.attrs = attr;
   cfg.numAttrs = !GATED && pdl ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, ffn_gemm<BM, GATED>, a, b0, b1, out, part,
-                           counters, E, M, K, N, ks);
+                           counters, rows, E, M, K, N, ks);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <int BM>
 cudaError_t launch_tc(const bf16* x, const bf16* wg, const bf16* wu,
                       const bf16* wd, bf16* y, bf16* h, float* part,
-                      int* counters, int E, int T, int d, int f, int ks_up,
-                      int ks_down, int pdl, cudaStream_t stream) {
+                      int* counters, const int* rows, int E, int T, int d,
+                      int f, int ks_up, int ks_down, int pdl,
+                      cudaStream_t stream) {
   const int m_tiles = (T + BM - 1) / BM;
-  cudaError_t err = launch_gemm<BM, true>(x, wg, wu, h, part, counters, E, T,
-                                          d, f, ks_up, 0, stream);
+  cudaError_t err = launch_gemm<BM, true>(x, wg, wu, h, part, counters, rows,
+                                          E, T, d, f, ks_up, 0, stream);
   if (err != cudaSuccess) return err;
   int* counters_down = counters + E * m_tiles * ((f + kBN - 1) / kBN);
-  return launch_gemm<BM, false>(h, wd, nullptr, y, part, counters_down, E, T,
-                                f, d, ks_down, pdl, stream);
+  return launch_gemm<BM, false>(h, wd, nullptr, y, part, counters_down, rows,
+                                E, T, f, d, ks_down, pdl, stream);
 }
 
 }  // namespace
 
 // The scalar route. x [E, T, d], wg/wu [E, d, f], wd [E, f, d], y [E, T, d],
-// all contiguous; scratch: n_split * E * T * d floats. bt: rows per CTA (1,
-// 4 or 16).
+// all contiguous; rows: int32 [E] live rows of each expert, or null (all
+// T); scratch: n_split * E * T * d floats. bt: rows per CTA (1, 4 or 16).
 extern "C" int fused_ffn_fwd(int dtype, const void* x, const void* wg,
-                             const void* wu, const void* wd, void* y,
-                             void* scratch, int E, int n_rows, int d, int f,
-                             int bt, int n_split, void* stream) {
+                             const void* wu, const void* wd, const void* rows,
+                             void* y, void* scratch, int E, int n_rows, int d,
+                             int f, int bt, int n_split, void* stream) {
   if (E < 1 || n_rows < 1 || d < 1 || f < 1 || n_split < 1)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* r = static_cast<const int*>(rows);
   if (dtype == kF32)
-    return dispatch<float>(bt, x, wg, wu, wd, y, scratch, E, n_rows, d, f,
+    return dispatch<float>(bt, x, wg, wu, wd, r, y, scratch, E, n_rows, d, f,
                            n_split, s);
   if (dtype == kBF16)
-    return dispatch<__nv_bfloat16>(bt, x, wg, wu, wd, y, scratch, E, n_rows,
-                                   d, f, n_split, s);
+    return dispatch<__nv_bfloat16>(bt, x, wg, wu, wd, r, y, scratch, E,
+                                   n_rows, d, f, n_split, s);
   return cudaErrorInvalidValue;
 }
 
 // The tensor-core route, bf16. h: [E, T, f] scratch; part: f32 partials,
 // max(2 ks_up E T f, ks_down E T d) floats (unused when both ks are 1);
 // counters: E * m_tiles * (ceil(f / 64) + ceil(d / 64)) ints, zero on
-// entry and left zero. bm: 16 or 64 rows a tile. pdl: launch the down
-// GEMM as a programmatic dependent. d and f multiples of 8, every pointer
+// entry and left zero; rows: int32 [E] live rows of each expert, or null
+// (all T). bm: 16 or 64 rows a tile. pdl: launch the down GEMM as a
+// programmatic dependent. d and f multiples of 8, every pointer but rows
 // 16-byte aligned.
 extern "C" int fused_ffn_tc_fwd(const void* x, const void* wg,
                                 const void* wu, const void* wd, void* y,
-                                void* h, void* part, void* counters, int E,
-                                int n_rows, int d, int f, int bm, int ks_up,
-                                int ks_down, int pdl, void* stream) {
+                                void* h, void* part, void* counters,
+                                const void* rows, int E, int n_rows, int d,
+                                int f, int bm, int ks_up, int ks_down,
+                                int pdl, void* stream) {
   if (E < 1 || n_rows < 1 || d < 8 || f < 8 || d % 8 || f % 8 ||
       ks_up < 1 || ks_down < 1)
     return cudaErrorInvalidValue;
@@ -492,8 +528,9 @@ extern "C" int fused_ffn_tc_fwd(const void* x, const void* wg,
     return launch(static_cast<const bf16*>(x), static_cast<const bf16*>(wg),
                   static_cast<const bf16*>(wu), static_cast<const bf16*>(wd),
                   static_cast<bf16*>(y), static_cast<bf16*>(h),
-                  static_cast<float*>(part), static_cast<int*>(counters), E,
-                  n_rows, d, f, ks_up, ks_down, pdl, s);
+                  static_cast<float*>(part), static_cast<int*>(counters),
+                  static_cast<const int*>(rows), E, n_rows, d, f, ks_up,
+                  ks_down, pdl, s);
   };
   if (bm == 16) return args(launch_tc<16>);
   if (bm == 64) return args(launch_tc<64>);

@@ -8,6 +8,15 @@ source is ``csrc/fused_ffn.cu``. Layouts are the TPU kernel's:
 all contiguous. ``h = silu(x wg) * (x wu)`` is formed in f32 and rounded to
 the input dtype before the down projection, as in the TPU kernel.
 
+``rows`` (optional, the MoE's dispatch buffer): an int32 ``[E]`` tensor
+on x's device, the live rows of each expert. Rows ``>= rows[e]`` of
+expert ``e`` need no output: the kernel skips every row tile that starts
+there, so an expert that no row was sent to costs no weight bytes, and
+leaves such rows of ``y`` unwritten; the caller reads none of them. The
+counts stay on the device (no host read, so the call can be captured in a
+CUDA graph), and the plan is the same as without them. ``rows=None``
+launches exactly as before. The plain version computes every row.
+
 On the card, :func:`ffn_plan` picks the route and the tiling from shapes
 alone (no tensor is read, so a CUDA graph could capture the call): bf16
 runs two tensor-core GEMMs (gate/up with the SwiGLU epilogue into a bf16
@@ -146,20 +155,22 @@ def scratch_bytes(E: int, T: int, d: int, f: int, ks_up: int,
     return max(up, down)
 
 
-def fused_ffn_plain(x, wg, wu, wd) -> torch.Tensor:
-    """Plain PyTorch version with the kernel's arithmetic."""
+def fused_ffn_plain(x, wg, wu, wd, rows=None) -> torch.Tensor:
+    """Plain PyTorch version with the kernel's arithmetic. It computes
+    every row, so ``rows`` is taken and not read."""
     g = torch.matmul(x.float(), wg.float())
     u = torch.matmul(x.float(), wu.float())
     h = (torch.nn.functional.silu(g) * u).to(x.dtype)
     return torch.matmul(h.float(), wd.float()).to(x.dtype)
 
 
-def fused_ffn(x, wg, wu, wd) -> torch.Tensor:
-    """SwiGLU FFN batched over E. A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises."""
+def fused_ffn(x, wg, wu, wd, rows=None) -> torch.Tensor:
+    """SwiGLU FFN batched over E; ``rows``: live rows of each expert. A
+    CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises."""
     if x.device.type == "cpu":
-        return fused_ffn_plain(x, wg, wu, wd)
-    return _launch(x, wg, wu, wd)
+        return fused_ffn_plain(x, wg, wu, wd, rows)
+    return _launch(x, wg, wu, wd, rows)
 
 
 def _smem_bytes(bt: int, d: int) -> int:
@@ -179,7 +190,7 @@ def _launch_shape(n_rows: int, E: int, f: int, sms: int, d: int) -> tuple:
     return bt, max(1, min(n_chunks, -(-2 * sms // tiles)))
 
 
-def _launch(x, wg, wu, wd):
+def _launch(x, wg, wu, wd, rows=None):
     name = "fused_ffn"
     dev = _cuda.check(name, {"x": x, "wg": wg, "wu": wu, "wd": wd})
     E, T, d = x.shape
@@ -192,6 +203,13 @@ def _launch(x, wg, wu, wd):
     for arg, t in (("x", x), ("wg", wg), ("wu", wu), ("wd", wd)):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+    if rows is not None and (rows.device != dev or rows.dtype != torch.int32
+                             or tuple(rows.shape) != (E,)
+                             or not rows.is_contiguous()):
+        raise ValueError(f"{name}: rows must be a contiguous int32 [{E}] "
+                         f"tensor on {dev}, got {rows.dtype} "
+                         f"{tuple(rows.shape)} on {rows.device}")
+    rows_ptr = None if rows is None else rows.data_ptr()
     aligned = _cuda.rows_aligned(*((t, ()) for t in (x, wg, wu, wd)))
     plan = ffn_plan(E, T, d, f, x.dtype, _cuda.sm_count(dev.index or 0),
                     aligned=aligned)
@@ -201,18 +219,18 @@ def _launch(x, wg, wu, wd):
     if plan.route == "tensor_core":
         h = torch.empty((E, T, f), dtype=x.dtype, device=dev)
         fn = _cuda.entry(name, "fused_ffn_tc_fwd",
-                         [_cuda.P] * 8 + [_cuda.I] * 8 + [_cuda.P])
+                         [_cuda.P] * 9 + [_cuda.I] * 8 + [_cuda.P])
         err = fn(x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
                  y.data_ptr(), h.data_ptr(), scratch.data_ptr(),
-                 _counters(dev, plan.counters).data_ptr(), E, T, d, f,
-                 plan.bm, plan.ks_up, plan.ks_down, int(plan.pdl),
+                 _counters(dev, plan.counters).data_ptr(), rows_ptr, E, T, d,
+                 f, plan.bm, plan.ks_up, plan.ks_down, int(plan.pdl),
                  _cuda.stream_ptr(dev))
     else:
         fn = _cuda.entry(name, "fused_ffn_fwd",
-                         [_cuda.I] + [_cuda.P] * 6 + [_cuda.I] * 6
+                         [_cuda.I] + [_cuda.P] * 7 + [_cuda.I] * 6
                          + [_cuda.P])
         err = fn(_cuda.DTYPE_CODES[x.dtype], x.data_ptr(), wg.data_ptr(),
-                 wu.data_ptr(), wd.data_ptr(), y.data_ptr(),
+                 wu.data_ptr(), wd.data_ptr(), rows_ptr, y.data_ptr(),
                  scratch.data_ptr(), E, T, d, f, plan.bt, plan.n_split,
                  _cuda.stream_ptr(dev))
     _cuda.raise_on(name, err)

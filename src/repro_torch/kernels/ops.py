@@ -93,11 +93,14 @@ def paged_decode_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     return out.reshape(B, 1, nh, hd)
 
 
-def fused_ffn(x, wg, wu, wd, *, force_ref: bool = False) -> Tensor:
-    """x [E,T,d]; wg,wu [E,d,f]; wd [E,f,d] -> [E,T,d]."""
+def fused_ffn(x, wg, wu, wd, *, rows: Tensor | None = None,
+              force_ref: bool = False) -> Tensor:
+    """x [E,T,d]; wg,wu [E,d,f]; wd [E,f,d] -> [E,T,d]. ``rows`` (int32
+    [E], on x's device): live rows of each expert; rows of expert e at or
+    past ``rows[e]`` may be left unwritten (the oracle computes them)."""
     if force_ref:
         return ref.fused_ffn_ref(x, wg, wu, wd)
-    return _ffn(x, wg, wu, wd)
+    return _ffn(x, wg, wu, wd, rows)
 
 
 def rwkv6_scan(r: Tensor, k: Tensor, v: Tensor, la: Tensor, u: Tensor, *,

@@ -50,6 +50,22 @@ def fused_ffn_ref(x: Tensor, wg: Tensor, wu: Tensor, wd: Tensor) -> Tensor:
     return torch.einsum("etf,efd->etd", h, wd)
 
 
+def grouped_ffn_ref(x: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor,
+                    group_sizes: Tensor) -> Tensor:
+    """Grouped (per-expert) SwiGLU FFN oracle for the MoE's dropless
+    dispatch. x [T, d] sorted by expert; w_* [E, ...]; group_sizes [E]
+    sums to T."""
+    T = x.shape[0]
+    bounds = torch.cumsum(group_sizes, 0)
+    eid = torch.searchsorted(bounds, torch.arange(T, device=x.device,
+                                                  dtype=bounds.dtype),
+                             right=True)
+    g = torch.einsum("td,tdf->tf", x, w_gate[eid])
+    u = torch.einsum("td,tdf->tf", x, w_up[eid])
+    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    return torch.einsum("tf,tfd->td", h, w_down[eid])
+
+
 def ssd_scan_ref(x: Tensor, dt: Tensor, a: Tensor, Bm: Tensor, Cm: Tensor,
                  s0: Tensor | None = None):
     """Sequential Mamba2 SSD oracle.

@@ -1,7 +1,7 @@
 """The ported model families: the dense GQA decoder (RMS norm or LayerNorm,
-SwiGLU or GELU MLP, full or sliding-window attention), RWKV6 and the
-Mamba2 + shared-attention hybrid (the slices of ``repro.models`` the
-serving paths run)."""
+SwiGLU or GELU MLP, full or sliding-window attention), the fine-grained
+mixture of experts, RWKV6 and the Mamba2 + shared-attention hybrid (the
+slices of ``repro.models`` the serving paths run)."""
 from .attention import (KVCache, PagedKVCache, QuantKVCache, init_cache,
                         init_paged_cache)
 from .config import ModelConfig, reduced

@@ -1,18 +1,22 @@
 """Model configuration for the families the port runs.
 
-The fields mirror ``repro.models.config.ModelConfig`` for the three
+The fields mirror ``repro.models.config.ModelConfig`` for the four
 families that are ported: the dense GQA transformer (``dense``: RMS norm,
 LayerNorm or OLMo's LayerNorm without parameters, a SwiGLU or GELU MLP,
-full or sliding-window attention), the recurrent stack (``ssm``: RWKV6 blocks
-when the config carries an ``RWKVConfig``, Mamba2 otherwise) and the hybrid (``hybrid``: a
+full or sliding-window attention), the fine-grained mixture of experts
+(``moe``: the dense decoder's attention with a routed-expert FFN, top-k
+token choice plus always-on shared experts, DeepSeek-MoE / Granite
+style), the recurrent stack (``ssm``: RWKV6 blocks when the config
+carries an ``RWKVConfig``, Mamba2 otherwise) and the hybrid (``hybrid``: a
 Mamba2 backbone plus ONE weight-shared attention+MLP block applied after
 every ``attn_every`` Mamba2 layers, Zamba2-style). The JAX package's
 kernel flags (``use_kernels``, ``use_decode_kernel``) have no counterpart:
 in the port the device decides, and on a CUDA device the model always
 goes through the Hopper kernels. Two differences from the JAX config:
-the ``ssm`` and ``rwkv`` sub-configs are set only for a family that reads
-them (the JAX package chooses the recurrent block by the arch id), and
-``SSMConfig`` has no chunk length, since the SSD kernel chooses its own.
+the ``moe``, ``ssm`` and ``rwkv`` sub-configs are set only for a family
+that reads them (the JAX package chooses the recurrent block by the arch
+id), and ``SSMConfig`` has no chunk length, since the SSD kernel chooses
+its own.
 """
 from __future__ import annotations
 
@@ -24,12 +28,29 @@ import torch
 from ..compat import torch_dtype
 
 #: families the port runs; the JAX package's others raise in ``validate``
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: the MoE's dispatch implementations (``models/moe.py``)
+MOE_IMPLS = ("capacity", "ragged", "dense")
 #: decode KV cache storage types
 KV_CACHE_DTYPES = ("model", "int8")
 #: normalisation layers: RMS norm, LayerNorm with scale and bias, and
 #: OLMo's LayerNorm without learned parameters
 NORMS = ("rmsnorm", "layernorm", "nonparametric_ln")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0            # routed experts
+    top_k: int = 0
+    n_shared_experts: int = 0     # always-on experts (DeepSeek-MoE style)
+    d_expert: int = 0             # per-expert FFN hidden size (fine-grained)
+    router_aux_coef: float = 0.01  # load-balance loss coefficient
+    # dispatch (one of MOE_IMPLS): "capacity" sorts the (token, expert)
+    # pairs into a fixed [E, C, d] buffer and drops each expert's overflow;
+    # "ragged" is dropless; "dense" runs every expert on every token (the
+    # oracle). Decode is dropless whatever this says (models/moe.py).
+    impl: str = "capacity"
+    capacity_factor: float = 1.25
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +88,7 @@ class ModelConfig:
     norm: str = "rmsnorm"                   # one of NORMS
     tie_embeddings: bool = False
     gated_mlp: bool = True                  # SwiGLU; False: GELU (up, down)
+    moe: Optional[MoEConfig] = None         # set for the moe family
     ssm: Optional[SSMConfig] = None         # set for a Mamba2 backbone
     rwkv: Optional[RWKVConfig] = None       # set for an RWKV6 backbone
     dtype: str = "bfloat16"
@@ -96,6 +118,8 @@ class ModelConfig:
     def block_kinds(self) -> tuple:
         """Per-layer block kinds. The hybrid stack is a Mamba2 backbone; its
         shared attention block is not one of the layers."""
+        if self.family == "moe":
+            return ("moe",) * self.n_layers
         if self.family == "ssm":
             kind = "rwkv6" if self.rwkv is not None else "mamba2"
             return (kind,) * self.n_layers
@@ -111,6 +135,47 @@ class ModelConfig:
     def has_shared_attn(self) -> bool:
         return self.family == "hybrid"
 
+    @property
+    def has_attn_layers(self) -> bool:
+        """Whether every layer is an attention block (dense or MoE): K/V
+        per position in every layer, no recurrent state."""
+        return self.backbone_kind in ("attn", "moe")
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding, blocks, head; norms left
+        out), ``repro.models.config.ModelConfig.param_count``'s formula."""
+        d, v, hd = self.d_model, self.vocab_size, self.hd
+        n = v * d * (1 if self.tie_embeddings else 2)
+        attn = (2 * self.n_heads * hd + 2 * self.n_kv_heads * hd) * d
+        kind = self.backbone_kind
+        if kind == "attn":
+            per = attn + d * self.d_ff * (3 if self.gated_mlp else 2)
+        elif kind == "moe":
+            m = self.moe
+            per = attn + (m.n_experts + m.n_shared_experts) * d \
+                * m.d_expert * 3 + d * m.n_experts
+        elif kind == "mamba2":
+            d_in = self.ssm.expand * d
+            nh = d_in // self.ssm.head_dim
+            per = d * (2 * d_in + 2 * self.ssm.d_state + nh) + d_in * d \
+                + self.ssm.d_conv * (d_in + 2 * self.ssm.d_state)
+        else:   # rwkv6: wr, wk, wv, wg, wo + cr, channel mix, decay LoRA
+            per = d * d * 6 + d * self.d_ff * 2 \
+                + d * self.rwkv.decay_lora * 2
+        n += per * self.n_layers
+        if self.has_shared_attn:
+            n += attn + d * self.d_ff * 3
+        return n
+
+    def active_param_count(self) -> int:
+        """Parameters a token runs through (MoE: shared + top_k routed
+        experts)."""
+        if self.family != "moe":
+            return self.param_count()
+        m = self.moe
+        per_expert = self.d_model * m.d_expert * 3 * self.n_layers
+        return self.param_count() - (m.n_experts - m.top_k) * per_expert
+
     def validate(self, paged: bool = False) -> None:
         """Raise for a config the port cannot run; ``paged``: also for one
         the paged KV pool cannot hold (a sliding window keeps a ring of
@@ -121,7 +186,7 @@ class ModelConfig:
                 f"{', '.join(PORTED_FAMILIES)}")
         if not (self.d_model > 0 and self.n_layers > 0 and self.vocab_size > 0):
             raise ValueError("d_model, n_layers and vocab_size must be > 0")
-        if self.backbone_kind == "attn" or self.has_shared_attn:
+        if self.has_attn_layers or self.has_shared_attn:
             if (self.n_heads <= 0 or self.n_kv_heads <= 0
                     or self.n_heads % self.n_kv_heads):
                 raise ValueError("GQA grouping needs n_kv_heads | n_heads")
@@ -129,6 +194,15 @@ class ModelConfig:
             raise ValueError("attn_every must be >= 1")
         if self.backbone_kind == "mamba2" and self.ssm is None:
             raise ValueError("a Mamba2 backbone needs an SSMConfig")
+        if self.family == "moe":
+            m = self.moe
+            if m is None or not (m.n_experts > 0 and m.top_k > 0):
+                raise ValueError("the moe family needs a MoEConfig with "
+                                 "n_experts > 0 and top_k > 0")
+            if m.top_k > m.n_experts:
+                raise ValueError("top_k must be <= n_experts")
+            if m.impl not in MOE_IMPLS:
+                raise ValueError(f"MoE impl {m.impl!r} not in {MOE_IMPLS}")
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r} not in "
                              f"{KV_CACHE_DTYPES}")
@@ -144,7 +218,8 @@ class ModelConfig:
 def reduced(cfg: ModelConfig, n_layers: int = 2,
             d_model: int = 256) -> ModelConfig:
     """Small variant of the same family for CPU tests (2 layers, d_model 256,
-    f32, a sliding window cut to 64), the same reduction as
+    f32, a sliding window cut to 64; a MoE at most 4 experts, top-2, one
+    shared expert, capacity factor 8), the same reduction as
     ``repro.models.config.reduced``."""
     scale = d_model / cfg.d_model
     n_heads = max(1, min(cfg.n_heads, 4))
@@ -155,6 +230,12 @@ def reduced(cfg: ModelConfig, n_layers: int = 2,
         cfg.ssm, d_state=min(cfg.ssm.d_state, 16), head_dim=32)
     rwkv = cfg.rwkv and dataclasses.replace(cfg.rwkv, head_dim=32,
                                             decay_lora=16)
+    moe = cfg.moe and dataclasses.replace(
+        cfg.moe, n_experts=min(cfg.moe.n_experts, 4),   # <= 4 experts
+        top_k=min(cfg.moe.top_k, 2),
+        n_shared_experts=min(cfg.moe.n_shared_experts, 1),
+        d_expert=max(32, int(cfg.moe.d_expert * scale)),
+        capacity_factor=8.0)   # smoke tests: effectively dropless
     return dataclasses.replace(
         cfg,
         arch_id=cfg.arch_id + "-smoke",
@@ -166,6 +247,6 @@ def reduced(cfg: ModelConfig, n_layers: int = 2,
         d_ff=max(64, int(cfg.d_ff * scale)),
         vocab_size=min(cfg.vocab_size, 512),
         sliding_window=(64 if cfg.sliding_window else None),
-        ssm=ssm, rwkv=rwkv,
+        moe=moe, ssm=ssm, rwkv=rwkv,
         dtype="float32",
     )

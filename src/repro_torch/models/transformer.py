@@ -1,8 +1,10 @@
 """Model assembly for the ported families.
 
 Block kinds: ``"attn"`` (the dense decoder, with the config's norm, MLP
-and attention window), ``"rwkv6"`` (the recurrent ``ssm`` family) and
-``"mamba2"`` (the hybrid's backbone). The hybrid
+and attention window), ``"moe"`` (the same attention with the routed and
+shared experts of ``models/moe.py`` in place of the MLP; its K/V caches,
+slot or paged, are the dense decoder's), ``"rwkv6"`` (the recurrent
+``ssm`` family) and ``"mamba2"`` (the hybrid's backbone). The hybrid
 (Zamba2-style) stack runs ``g = n_layers // attn_every`` groups of
 ``attn_every`` Mamba2 layers, each followed by ONE application of a
 weight-shared attention+MLP block (``params["shared_attn"]``, unstacked),
@@ -31,7 +33,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from ..compat import DEFAULT_DEVICE, resolve_device
-from . import attention, mamba2, rwkv6
+from . import attention, mamba2, moe, rwkv6
 from .attention import PagedKVCache
 from .config import ModelConfig
 from .layers import (apply_mlp, apply_norm, embed_tokens, init_embed,
@@ -45,6 +47,9 @@ Tensor = torch.Tensor
 class ModelOutput(NamedTuple):
     logits: Tensor
     cache: Any               # decode cache or None
+    # forward: the MoE load-balance aux loss summed over the layers, an f32
+    # scalar (0 for the other families); decode_step computes none
+    aux_loss: Optional[Tensor] = None
 
 
 def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator,
@@ -54,6 +59,11 @@ def _init_block(cfg: ModelConfig, kind: str, gen: torch.Generator,
                 "attn": attention.init_attn(cfg, gen, lead),
                 "ln2": init_norm(cfg, lead, dev),
                 "mlp": init_mlp(cfg, gen, lead)}
+    if kind == "moe":
+        return {"ln1": init_norm(cfg, lead, dev),
+                "attn": attention.init_attn(cfg, gen, lead),
+                "ln2": init_norm(cfg, lead, dev),
+                "moe": moe.init_moe(cfg, gen, lead)}
     if kind == "mamba2":
         return {"ln1": init_norm(cfg, lead, dev),
                 "mamba": mamba2.init_mamba2(cfg, gen, lead)}
@@ -110,22 +120,38 @@ def _hybrid_layout(cfg: ModelConfig):
     return cfg.n_layers // cfg.attn_every, cfg.n_layers % cfg.attn_every
 
 
+def _block_ffn(cfg: ModelConfig, p: dict, x: Tensor, force_ref: bool):
+    """An attention block's FFN on its normed input: the MLP, or the MoE
+    (``p["moe"]``). Returns (h, aux loss or None)."""
+    if "moe" in p:
+        return moe.moe_forward(cfg, p["moe"], x, force_ref=force_ref)
+    return apply_mlp(cfg, p["mlp"], x, force_ref=force_ref), None
+
+
+def _block_ffn_decode(cfg: ModelConfig, p: dict, x: Tensor,
+                      force_ref: bool) -> Tensor:
+    """``_block_ffn`` of a decode step, which has no use for the MoE's aux
+    loss and so does not compute it."""
+    if "moe" in p:
+        return moe.moe_apply(cfg, p["moe"], x, force_ref=force_ref)[0]
+    return apply_mlp(cfg, p["mlp"], x, force_ref=force_ref)
+
+
 def _block_forward(cfg: ModelConfig, kind: str, p: dict, x: Tensor,
                    positions: Tensor, force_ref: bool):
-    """Full-sequence block. Returns (x, cache seed)."""
-    if kind == "attn":
+    """Full-sequence block. Returns (x, cache seed, aux loss or None)."""
+    if kind in ("attn", "moe"):
         h, kv = attention.attn_forward(cfg, p["attn"],
                                        apply_norm(cfg, p["ln1"], x),
                                        positions, force_ref=force_ref)
         x = x + h
-        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x),
-                          force_ref=force_ref)
-        return x, kv
+        h, aux = _block_ffn(cfg, p, apply_norm(cfg, p["ln2"], x), force_ref)
+        return x + h, kv, aux
     if kind == "mamba2":
         h, cache = mamba2.mamba2_forward(cfg, p["mamba"],
                                          apply_norm(cfg, p["ln1"], x),
                                          force_ref=force_ref)
-        return x + h, cache
+        return x + h, cache, None
     if kind == "rwkv6":
         zp = torch.zeros(x.shape[0], cfg.d_model, dtype=x.dtype,
                          device=x.device)
@@ -136,7 +162,7 @@ def _block_forward(cfg: ModelConfig, kind: str, p: dict, x: Tensor,
         h, last_cm = rwkv6.rwkv6_channel_mix(
             cfg, p["rwkv"], apply_norm(cfg, p["ln2"], x), zp)
         return x + h, RWKVCache(shift_tm=last_tm, shift_cm=last_cm, wkv=st,
-                                length=x.shape[1])
+                                length=x.shape[1]), None
     raise ValueError(f"unknown block kind {kind!r}")
 
 
@@ -147,23 +173,30 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor,
     """tokens [B, S] -> logits [B, S, V].
 
     ``return_cache`` returns the decode seeds stacked on the layer axes:
-    ``{"layers": (k, v)}`` ``[L, B, S, nkv, hd]`` (dense),
+    ``{"layers": (k, v)}`` ``[L, B, S, nkv, hd]`` (dense and MoE),
     ``{"layers": RWKVCache}`` (recurrent), or for the hybrid
     ``{"grouped": MambaCache [g, attn_every, ...], "shared": (k, v)
     [g, ...], "remainder": MambaCache [rem, ...]}`` (``None`` where a part
     is empty). With ``cache_capacity`` the K/V seeds become
     fixed-capacity ``KVCache``s (``QuantKVCache``s when the config's KV
     cache is int8). ``force_ref`` runs the JAX package's reference math in
-    place of the kernels.
+    place of the kernels. ``aux_loss`` sums the MoE layers' load-balance
+    losses (0 for the other families).
     """
     x = embed_tokens(cfg, params["embed"], tokens)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     kind = cfg.backbone_kind
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def block(i, x):
-        return _block_forward(cfg, kind, _layer_at(params["blocks"], i), x,
-                              positions, force_ref)
+        nonlocal aux_total
+        x, seed, aux = _block_forward(cfg, kind,
+                                      _layer_at(params["blocks"], i), x,
+                                      positions, force_ref)
+        if aux is not None:
+            aux_total = aux_total + aux
+        return x, seed
 
     cache = None
     if not cfg.has_shared_attn:
@@ -182,8 +215,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor,
             for j in range(cfg.attn_every):
                 x, seed = block(gi * cfg.attn_every + j, x)
                 row.append(seed)
-            x, kv = _block_forward(cfg, "attn", params["shared_attn"], x,
-                                   positions, force_ref)
+            x, kv, _ = _block_forward(cfg, "attn", params["shared_attn"],
+                                      x, positions, force_ref)
             if return_cache:
                 grouped.append(_stack(row))
                 shared.append(kv)
@@ -198,14 +231,14 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor,
     logits = lm_head(cfg, params["embed"], x)
     if return_cache and cache_capacity is not None:
         cache = _seed_cache(cfg, cache, cache_capacity)
-    return ModelOutput(logits=logits, cache=cache)
+    return ModelOutput(logits=logits, cache=cache, aux_loss=aux_total)
 
 
 def _seed_cache(cfg: ModelConfig, cache: dict, capacity: int) -> dict:
     """Prefill K/V ``[L, B, S, ..]`` -> fixed-capacity decode caches; the
     recurrent states are decode caches already."""
     key = "shared" if cfg.has_shared_attn else "layers"
-    if cfg.has_shared_attn or cfg.backbone_kind == "attn":
+    if cfg.has_shared_attn or cfg.has_attn_layers:
         if cache[key] is not None:
             k, v = cache[key]
             cache = {**cache, key: attention.cache_from_prefill(cfg, k, v,
@@ -219,7 +252,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int,
     dev = resolve_device(device)
     kind = cfg.backbone_kind
     if not cfg.has_shared_attn:
-        if kind == "attn":
+        if cfg.has_attn_layers:
             return {"layers": attention.init_cache(cfg, batch, capacity,
                                                    dev)}
         make = (rwkv6.init_rwkv_cache if kind == "rwkv6"
@@ -239,15 +272,15 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int,
 
 def _attn_block_decode(cfg: ModelConfig, p: dict, x: Tensor, kv, pos,
                        layer: int, force_ref: bool) -> Tensor:
-    """Attention block step writing K/V in place into layer ``layer`` of the
-    stacked slot cache (``KVCache`` or ``QuantKVCache``) or the paged
-    pool."""
+    """Attention block step (dense or MoE) writing K/V in place into layer
+    ``layer`` of the stacked slot cache (``KVCache`` or ``QuantKVCache``)
+    or the paged pool."""
     attend = (attention.attn_decode_paged if isinstance(kv, PagedKVCache)
               else attention.attn_decode_stacked)
     x = x + attend(cfg, p["attn"], apply_norm(cfg, p["ln1"], x), kv, pos,
                    layer, force_ref=force_ref)
-    return x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["ln2"], x),
-                         force_ref=force_ref)
+    return x + _block_ffn_decode(cfg, p, apply_norm(cfg, p["ln2"], x),
+                                 force_ref)
 
 
 def _recurrent_decode(cfg: ModelConfig, kind: str, p: dict, x: Tensor,
@@ -312,7 +345,7 @@ def decode_step(cfg: ModelConfig, params: dict, token: Tensor, cache: dict,
         layers = cache["layers"]
         for i in range(cfg.n_layers):
             p = _layer_at(blocks, i)
-            if kind == "attn":
+            if cfg.has_attn_layers:
                 x = _attn_block_decode(cfg, p, x, layers, layers.length, i,
                                        force_ref)
             else:

@@ -68,8 +68,13 @@ Padding contract (as the JAX package's): right-padded batched admission
 is exact for the full-attention dense backbone (causal masking leaves the
 last real token's logits unchanged, and decode overwrites a pad's K/V
 before the per-row mask exposes it), so there every admission is one
-group. Recurrent (RWKV6) and hybrid (Mamba2 + shared attention) rows, and
-sliding-window rows, fold pads into carried state or into a ring, so
+group. The MoE backbone pads as the dense one does, unless it dispatches
+by capacity: then the rows of one prefill (pads included) compete for
+the experts' capacity slots, and a token kept when its prompt is served
+alone could be dropped in a batch, so its admissions prefill one request
+at a time (``_batch_rows``), as the JAX package's do. Recurrent (RWKV6)
+and hybrid (Mamba2 + shared attention) rows, and sliding-window rows,
+fold pads into carried state or into a ring, so
 their admissions group by equal prompt length, in the JAX engine's order,
 with no pads: one prefill per group (the scan kernels at B = the group's
 rows). The insert overwrites every state leaf of each new row (the conv
@@ -78,7 +83,7 @@ per-row position), so a refilled slot keeps nothing of the request it
 held. The recurrent states carry no position, and the decode step copies
 them in place, so one captured step serves every admission. These
 backbones refuse the paged pool (``ValueError``), as the JAX package's
-do; the capacity-dispatch MoE branch is not ported (``ROADMAP.md``).
+do; the dense and MoE backbones take it.
 """
 from __future__ import annotations
 
@@ -208,8 +213,8 @@ class ContinuousBatchingEngine:
         if paged:
             if not self._can_page():
                 raise ValueError(
-                    "paged KV requires a full-attention backbone (attn, no "
-                    "sliding window, no shared attention)")
+                    "paged KV requires a full-attention backbone (attn or "
+                    "moe, no sliding window, no shared attention)")
             self.block_size = block_size
             self.n_bt = max(1, math.ceil(capacity / block_size))
             self.capacity = self.n_bt * block_size
@@ -249,17 +254,29 @@ class ContinuousBatchingEngine:
 
     # ------------------------------------------------------------ internals
     def _can_page(self) -> bool:
-        """Paged decode covers the full-attention dense backbone: K/V per
-        position, blocks addressed by position. Ring buffers (sliding
-        window) and recurrent or hybrid state stay in slots."""
-        return (self.cfg.backbone_kind == "attn"
+        """Paged decode covers the full-attention backbones (dense and
+        MoE): K/V per position, blocks addressed by position. Ring
+        buffers (sliding window) and recurrent or hybrid state stay in
+        slots."""
+        return (self.cfg.has_attn_layers
                 and not self.cfg.has_shared_attn
                 and self.cfg.sliding_window is None)
 
+    def _batch_rows(self) -> int:
+        """How many requests one admission prefill may batch exactly:
+        one for capacity-dispatch MoE, whose rows (and pads) compete for
+        the experts' capacity slots, so that a request's tokens are those
+        it gets served alone; else every slot."""
+        if (self.cfg.backbone_kind == "moe"
+                and self.cfg.moe.impl == "capacity"):
+            return 1
+        return self.max_slots
+
     def _can_pad_batch(self) -> bool:
         """Right-padded ragged prefill is exact only where no state flows
-        forward past the pads: pure attention, no window."""
-        return (self.cfg.backbone_kind == "attn" and self.max_slots > 1
+        forward past the pads (pure attention, no window) and rows do not
+        couple through shared capacity buffers."""
+        return (self.cfg.has_attn_layers and self._batch_rows() > 1
                 and not self.cfg.has_shared_attn
                 and self.cfg.sliding_window is None)
 
@@ -418,9 +435,10 @@ class ContinuousBatchingEngine:
         """Admit queued requests ``(rid, prompt, budget, max_extra)`` in
         batched prefills: one right-padded group on the full-attention
         backbone, else one group per prompt length, in order of first
-        appearance. Returns per-request admission flags; admission is
-        FIFO over the list and stops at the first request that does not
-        fit (out of rows, or, paged, out of pool tokens).
+        appearance (capacity-dispatch MoE: one request a group). Returns
+        per-request admission flags; admission is FIFO over the list and
+        stops at the first request that does not fit (out of rows, or,
+        paged, out of pool tokens).
 
         Admission always emits the prefill's first token, so every request
         produces ``max(budget + max_extra, 1)`` tokens.
@@ -450,6 +468,10 @@ class ContinuousBatchingEngine:
             for item in batch:
                 by_len.setdefault(len(item[1][1]), []).append(item)
             groups = list(by_len.values())
+        rows = self._batch_rows()
+        if rows < max(len(g) for g in groups):   # capacity-dispatch MoE
+            groups = [g[i:i + rows] for g in groups
+                      for i in range(0, len(g), rows)]
         for group in groups:
             self._admit_group(group)
         return flags

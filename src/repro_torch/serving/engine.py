@@ -24,11 +24,12 @@ Two execution paths share one contract, as in ``repro.serving.engine``:
   step and one host sync per token. With greedy sampling both paths must
   produce the same tokens.
 
-The engine runs every ported family (dense, RWKV6, the Mamba2 hybrid) on
-the device its parameters live on: on a CUDA device every prefill
-attention, wkv or SSD scan, decode attention and SwiGLU MLP goes through
-the Hopper kernels (a GELU MLP is PyTorch's matmuls, as in the JAX
-package), and the decode kernels run inside the captured step. A
+The engine runs every ported family (dense, MoE, RWKV6, the Mamba2
+hybrid) on the device its parameters live on: on a CUDA device every
+prefill attention, wkv or SSD scan, decode attention, SwiGLU MLP and MoE
+expert FFN goes through the Hopper kernels (a GELU MLP is PyTorch's
+matmuls, as in the JAX package), and the decode kernels run inside the
+captured step. A
 sliding-window model keeps a ring of ``min(cache_capacity, window)``
 slots, which a prompt longer than the ring overflows into.
 Prefill stays eager (its shapes follow the prompt). The decode cache is

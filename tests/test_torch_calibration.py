@@ -223,7 +223,8 @@ def test_qwen3_8b_config_matches_reference():
     assert "qwen3-8b" in ARCH_IDS
     cfg, jcfg = get_config("qwen3-8b"), j_get_config("qwen3-8b")
     for f in dataclasses.fields(cfg):
-        if f.name in ("ssm", "rwkv"):     # None: a dense model reads neither
+        if f.name in ("moe", "ssm", "rwkv"):   # None: a dense model reads
+                                                # none of them
             assert getattr(cfg, f.name) is None
             continue
         assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name

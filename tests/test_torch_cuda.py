@@ -29,7 +29,12 @@ and graph checks. The decode step as a CUDA graph: on both engines and
 every family in bf16, the replayed chunk equals the same step run
 eagerly bit for bit (tokens and cache), replays make no host sync, one
 capture serves every budget, ``LAUNCHES`` counts the replayed kernels,
-and seeded stochastic decoding is reproducible through the graph.
+and seeded stochastic decoding is reproducible through the graph. The
+MoE: the FFN with per-expert ``rows`` at deepseek-moe-16b's and
+granite-moe-3b-a800m's expert buffers (E 64 and 40, a third of the
+experts empty) on its live rows, equal to the call without ``rows``
+there, its split counters left at zero; the MoE decode step with no host
+sync; reduced deepseek and granite through the replayed chunk.
 """
 import dataclasses
 
@@ -782,6 +787,95 @@ def test_ffn_shapes_match_plain(cuda_device, dtype, T, E, d, f):
                                rtol=tol, atol=tol)
 
 
+# the MoE's expert buffers: deepseek-moe-16b's 64 routed experts (d 2048,
+# d_expert 1408) and granite-moe-3b-a800m's 40 (d 1536, 512), at a batch-1
+# decode (T 1), the continuous engine's 8 slots and a capacity buffer of
+# a 113-token prefill (deepseek C 13); E 2 at qwen3's widths splits both
+# reductions (ks > 1), so a skipped tile must leave its counter alone
+ROWS_CASES = [(dt, E, T, d, f)
+              for dt in (torch.float32, torch.bfloat16)
+              for E, d, f in ((64, 2048, 1408), (40, 1536, 512),
+                              (2, 1024, 3072))
+              for T in (1, 8, 13)]
+
+
+def _live_rows(E, T, dev, seed=5):
+    """Per-expert live rows in [0, T], a third of the experts empty, one
+    full."""
+    g = torch.Generator().manual_seed(seed)
+    rows = torch.randint(0, T + 1, (E,), generator=g, dtype=torch.int32)
+    rows[::3] = 0
+    rows[1] = T
+    return rows.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,E,T,d,f", ROWS_CASES)
+def test_ffn_rows_match_plain_on_live_rows(cuda_device, dtype, E, T, d, f):
+    """``rows``: the live rows (``< rows[e]``) equal the plain version
+    within the FFN tolerance and the call without ``rows`` bit for bit
+    (the plan does not change), one launch; the split counters are left
+    at zero; repeated calls are bit-equal."""
+    from repro_torch.kernels.fused_ffn import _COUNTERS
+
+    x, wg, wu, wd = _ffn_inputs(cuda_device, dtype, E, T, d, f)
+    rows = _live_rows(E, T, cuda_device)
+    reset_launches()
+    got = fused_ffn(x, wg, wu, wd, rows=rows)
+    assert LAUNCHES["fused_ffn"] == 1
+    live = torch.arange(T, device=cuda_device)[None] < rows[:, None]
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(
+        got[live].float(), fused_ffn_plain(x, wg, wu, wd)[live].float(),
+        rtol=tol, atol=tol)
+    assert torch.equal(got[live], fused_ffn(x, wg, wu, wd)[live])
+    assert torch.equal(fused_ffn(x, wg, wu, wd, rows=rows)[live], got[live])
+    torch.cuda.synchronize()
+    assert all(int(b.count_nonzero()) == 0
+               for bufs in _COUNTERS.values() for b in bufs)
+
+
+@pytest.mark.cuda
+def test_ffn_rows_refuses_a_bad_count(cuda_device):
+    x, wg, wu, wd = _ffn_inputs(cuda_device, torch.bfloat16, 4, 2, 64, 64)
+    for rows in (torch.ones(4, dtype=torch.int64, device=cuda_device),
+                 torch.ones(3, dtype=torch.int32, device=cuda_device),
+                 torch.ones(4, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="rows"):
+            fused_ffn(x, wg, wu, wd, rows=rows)
+
+
+@pytest.mark.cuda
+def test_moe_step_makes_no_host_sync(cuda_device):
+    """The MoE decode step (routing, expert ranks, the buffer, the FFN with
+    rows, the combine) reads nothing on the host, eagerly and replayed."""
+    import numpy as np
+
+    from repro_torch.serving import DecodeEngine
+
+    cfg, params = _bf16_model(cuda_device, "deepseek-moe-16b")
+    eng = DecodeEngine(cfg, params, cache_capacity=64, chunk=4)
+    logits, cache = eng.prefill(np.ones((2, 9), np.int32))
+    key, _, step = eng._prepare(logits.argmax(-1), cache,
+                                np.array([20, 20], np.int32),
+                                np.array([17, 17], np.int32), None, 4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    eng._graphs.run(key, step)                 # warm-up, then the capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(6):
+            eng._graphs.run(key, step)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
 def _prefill_calls(dev):
     """One flash and one FFN call per regime and each scan at serve shapes
     (bf16, and the scans' f32 route)."""
@@ -905,13 +999,16 @@ def _eager(eng):
                                   "qwen3-0.6b-paged", "rwkv6-1.6b",
                                   "zamba2-7b", "starcoder2-3b",
                                   "rwkv6-1.6b-slot", "zamba2-7b-slot",
-                                  "starcoder2-3b-slot"])
+                                  "starcoder2-3b-slot", "deepseek-moe-16b",
+                                  "deepseek-moe-16b-slot",
+                                  "deepseek-moe-16b-paged",
+                                  "granite-moe-3b-a800m"])
 def test_graph_chunk_equals_eager_chunk(cuda_device, case):
     """The replayed chunk equals the same static-buffer step run eagerly,
     bit for bit: the tokens and every cache leaf, in bf16. ``-slot`` and
     ``-paged`` are the continuous engine (recurrent, hybrid and windowed
-    rows in slot mode, admitted in groups of equal length); the rest
-    ``DecodeEngine``."""
+    rows in slot mode, admitted in groups of equal length; capacity MoE
+    one request a group); the rest ``DecodeEngine``."""
     import numpy as np
 
     from repro_torch.obs import graph_hooks

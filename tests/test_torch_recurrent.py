@@ -123,7 +123,7 @@ def test_validate_takes_ported_families_only():
     for arch in ("qwen3-0.6b", *ARCHS):
         get_config(arch).validate()
     base = get_config("qwen3-0.6b")
-    for family in ("moe", "vlm", "audio"):
+    for family in ("vlm", "audio"):
         with pytest.raises(NotImplementedError, match="not ported"):
             dataclasses.replace(base, family=family).validate()
 
