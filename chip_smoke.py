@@ -237,12 +237,41 @@ Phases, in order; any failure ends the run with a non-zero exit:
    and a straggler fault, re-solving on the card: the alarm fires after
    the step, the deployed budgets shrink, every completed request's span
    tree is whole; the drift history, ladder levels and sheds printed.
+19. vlm_audio (after the MoE ids): llava-next-mistral-7b and
+   musicgen-medium behind their stub frontends' prefixes (1152 image-patch
+   and 64 conditioning-frame embeddings at d_model, 0.1 x normal from a
+   seeded generator): phase 4 in f32 behind the prefix (llava at
+   LLAVA_F32_LAYERS of its 32 layers, musicgen at full depth), then in
+   bf16 at full width and depth the prefix generate (DecodeEngine, two
+   37-token prompts behind a [2, P, d] prefix, the graph's capture call,
+   a replay-only call and the eager loop: tokens equal, exact budgets,
+   launches exact, decode tokens/s and ms a step against the weights'
+   floor), phase 6's serve (text-only, as the JAX package's server), and
+   for musicgen the slot and the paged continuous serves (phase 7's
+   checks; its GELU MLP never launches the FFN); each sub-phase's
+   seconds printed (vlm_audio_seconds);
+20. train: repro_torch.launch.train.main on full-width olmo-1b in bf16
+   (batch 8 x 64, 30 steps, lr 3e-3): every loss finite, the last 5
+   steps' mean below the first 5's, no kernel launched (the trainer runs
+   the reference math; no Pallas kernel of the JAX package has a VJP);
+   median step ms, tokens/s, peak memory, model-FLOP share at 989
+   TFLOP/s; reduced olmo-1b 4 steps, a checkpoint, a restore into a
+   fresh state and 4 more against 8 uninterrupted (losses within 1e-6
+   relative; bitwise or not, by default and under PyTorch's
+   deterministic algorithms); a kernel given a CUDA input that requires
+   grad raises.
+
+Each top-level phase prints its seconds as it ends (phase_seconds), and
+a summary of them precedes the des_lanes line. ``--only kernels,
+vlm_audio,train`` (any subset) runs just those after the build: a
+development run that prints neither the summary below nor the ok line.
 
 The des_lanes line, the card's name and power limit, then, as the line
 before the last, the kernels' JSON summary (with each kernel's
 launches on every serve path that ran it, the int8 serve, the int8 paged
 drain, the hooks serve, every continuous serve, the recurrent drains, the
-window check and the replay engine lane among them); the last line is
+window check, the replay engine lane, the prefix generates and the
+VLM / audio serves among them); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -254,6 +283,7 @@ import gc
 import inspect
 import json
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -330,6 +360,17 @@ SC_STEPS = 64             # the window check's decode steps, all past the wrap
 # stablelm-3b's: 32 kv heads of 80, one query head each; d / d_ff
 SL_H, SL_HD, SL_D, SL_DFF = 32, 80, 2560, 6912
 OLMO_D, OLMO_DFF = 2048, 8192  # olmo-1b's d / d_ff
+# llava-next-mistral-7b's: 8 kv heads of 128 with 4 query heads each, d
+# 4096 / d_ff 14336, 1152 prefix rows (2 anyres tiles of 576 patches), and
+# the prefix generate's cache; musicgen-medium's 24 heads of 64 (G 1) and
+# 64 conditioning rows
+LL_H, LL_G, LL_D, LL_DFF, LL_P = 8, 4, 4096, 14336, 1152
+MG_H, MG_HD, MG_P = 24, 64, 64
+PREFIX_PROMPT = 37        # the prompt behind the prefix (as the f32 checks)
+PREFIX_BUDGETS = (48, 30)  # the prefix generate's two rows, + 8 answer tokens
+LL_C = LL_P + PREFIX_PROMPT + 64   # its cache: prefix + prompt + 56 tokens
+LLAVA_F32_LAYERS = 4      # llava's f32 check (f32 weights at full depth: 29
+                          # GB, and the reference path's copies beside them)
 # the MoE ids: deepseek-moe-16b's 64 routed experts top-6 (d 2048, d_expert
 # 1408) and 2 shared (one SwiGLU of 2816); granite-moe-3b-a800m's 40 top-8
 # (d 1536, 512); a capacity prefill's buffer is C = int(S k 1.25 / E) rows
@@ -341,6 +382,8 @@ DS_F32_LAYERS = 4         # deepseek's f32 check (full depth: ~68 GB in f32)
 SCAN_GROUP_B, SCAN_GROUP_S = 4, 64  # a continuous admission group's scans
 DRAIN_BUDGET = 12         # the recurrent drain's budget (no answer tokens)
 PIN_BUDGET = 64           # budget cap of the eager-vs-graph pin's requests
+EAGER_PROFILED_STEPS = 4  # eager decode steps under the profiler (its wall
+                          # time a step comes from 16 unprofiled ones)
 OCCUPANCIES = (1, 2, 4, 8)  # continuous engines timed for fit_step_latency
 HOOKS_QUERIES = 48        # the hooks serve's stream, at 2x the service rate
 # the closed loop (serving.replay): tests/test_replay.py's runs
@@ -559,6 +602,14 @@ def kernel_cases(dev, flush):
     flash_case(torch.bfloat16, SC_S, SC_H, SC_G, HD, main=False,
                window=SC_WINDOW)
     flash_case(torch.bfloat16, max(prompt_lens), SL_H, 1, SL_HD, main=False)
+    # the VLM and audio prefills: llava's 1152 image rows plus the prompt
+    # (S 1189, G 4; B 2 is the prefix generate's), musicgen's 64 rows plus
+    # the prompt (S 101, G 1, hd 64)
+    for dtype in (torch.bfloat16, torch.float32):
+        flash_case(dtype, LL_P + PREFIX_PROMPT, LL_H, LL_G, HD, main=False)
+        flash_case(dtype, MG_P + PREFIX_PROMPT, MG_H, 1, MG_HD, main=False)
+    flash_case(torch.bfloat16, LL_P + PREFIX_PROMPT, LL_H, LL_G, HD,
+               main=False, B=2)
 
     # -- 2. slot decode attention over the stacked cache's [B,C,nkv,hd]:
     # batch 1 (DecodeEngine) and the continuous engine's 8 slot rows at
@@ -641,6 +692,14 @@ def kernel_cases(dev, flush):
                     what=f"valid={SC_WINDOW - 300}..{SC_WINDOW - 1}, 0..199 "
                          "(a ring wrapping past slot 0)", C=SC_WINDOW)
         decode_case(dtype, 1, (300,), SL_H, 1, SL_HD, main=False)
+        # llava over its prefix (the prefix generate's two rows) and
+        # musicgen at G 1, hd 64: batch 1 and 8 continuous slots
+        decode_case(dtype, 2, (LL_P + PREFIX_PROMPT + 1, LL_C - 8), LL_H,
+                    LL_G, HD, main=False, C=LL_C)
+        decode_case(dtype, 1, (MG_P + PREFIX_PROMPT + 1,), MG_H, 1, MG_HD,
+                    main=False)
+        decode_case(dtype, 8, tuple(p + 1 for p in POS), MG_H, 1, MG_HD,
+                    main=False)
     # merge-adversarial masks at batch 1 (n_split > 1): every valid slot in
     # split 0's tiles; a ring window; one dominant score in the last split
     for dtype in (torch.bfloat16, torch.float32):
@@ -674,7 +733,8 @@ def kernel_cases(dev, flush):
     pda = decode_attention.paged_decode_attention
     pda_plain = decode_attention.paged_decode_attention_plain
 
-    def paged_case(dtype, pos_list, main, holes=(), retired=None, G=G):
+    def paged_case(dtype, pos_list, main, holes=(), retired=None, G=G, H=H,
+                   HD=HD):
         B = len(pos_list)
         perm = torch.randperm(P, generator=torch.Generator().manual_seed(0))
         tables = torch.full((B, n_bt), P, dtype=torch.int32)
@@ -739,6 +799,7 @@ def kernel_cases(dev, flush):
         paged_case(dtype, POS[:6] + (2000, 1500), main=False,
                    holes=((3, 2), (6, 5), (6, 64)), retired=7)
         paged_case(dtype, POS, main=False, G=Q8_G)          # qwen3-8b's
+        paged_case(dtype, POS, main=False, G=1, H=MG_H, HD=MG_HD)  # musicgen
 
     # -- 4. fused SwiGLU FFN, E = 1: T = 1 at batch-1 decode, 8 at the
     # continuous engine's 8 slots, S at prefill, and the largest padded
@@ -798,6 +859,10 @@ def kernel_cases(dev, flush):
         ffn_case(dtype, 1, SL_D, SL_DFF, main=False)      # stablelm-3b's
     for T in (1, 8, MOE_PREFILL_S):                      # deepseek's shared
         ffn_case(torch.bfloat16, T, DS_D, DS_SHARED_F, main=False)
+    # llava's: decode at batch 1 and 2, its prefix prefill at B 1 and 2
+    for T in (1, 2, LL_P + PREFIX_PROMPT, 2 * (LL_P + PREFIX_PROMPT)):
+        ffn_case(torch.bfloat16, T, LL_D, LL_DFF, main=False)
+    ffn_case(torch.float32, 1, LL_D, LL_DFF, main=False)
 
     # -- 4b. the MoE's expert buffers [E, C, d] with per-expert live rows
     # (rows[e]): dropless decode (C = T, batch 1 and the continuous
@@ -924,14 +989,19 @@ def kernel_cases(dev, flush):
 
 
 def _greedy_run(cfg, params, prompt, force_ref, teacher=None,
-                capacity: int = 64, steps: int = 8):
-    """Prefill into a cache of ``capacity`` plus ``steps`` decode steps;
-    returns (logits per step, greedy tokens). With ``teacher`` (a token
-    list) the steps are fed those tokens instead of their own argmax."""
+                capacity: int = 64, steps: int = 8, prefix=None):
+    """Prefill into a cache of ``capacity`` (plus the ``prefix`` rows'
+    count) plus ``steps`` decode steps; returns (logits per step, greedy
+    tokens). With ``teacher`` (a token list) the steps are fed those tokens
+    instead of their own argmax. ``prefix``: the VLM / audio stub's
+    embeddings [1, P, d] in front of the prompt."""
     from repro_torch.models import decode_step, forward
 
-    out = forward(cfg, params, prompt, return_cache=True,
-                  cache_capacity=capacity, force_ref=force_ref)
+    if prefix is not None:
+        capacity += prefix.shape[1]
+    out = forward(cfg, params, prompt, prefix_embeds=prefix,
+                  return_cache=True, cache_capacity=capacity,
+                  force_ref=force_ref)
     logits, cache = [out.logits], out.cache
     toks = [out.logits[:, -1:].argmax(-1)]
     for i in range(steps):
@@ -1012,10 +1082,23 @@ def f64_witness(cfg, params, prompt, f32_prefill: dict) -> dict:
     return out
 
 
+def stub_prefix(dev, cfg, batch: int, dtype=None, seed: int = 0):
+    """The VLM / audio stub frontend's output: ``[batch, n_prefix_embeds,
+    d_model]`` at 0.1 x normal (tests/test_configs_smoke.py's scale), from
+    a seeded generator on the card; None for a text model."""
+    if not cfg.n_prefix_embeds:
+        return None
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (0.1 * torch.randn(batch, cfg.n_prefix_embeds, cfg.d_model,
+                              generator=gen, device=dev)
+            ).to(dtype or cfg.tdtype)
+
+
 def model_phase(dev, cfg, params) -> dict:
     """A full-width f32 model: the kernel path against force_ref, prefill
-    plus 8 decode steps teacher-forced on the reference's greedy tokens;
-    the kernel path's launches counted. For a scan family, also every
+    (behind the stub's prefix rows for the VLM and audio ids) plus 8
+    decode steps teacher-forced on the reference's greedy tokens; the
+    kernel path's launches counted. For a scan family, also every
     scan in situ (scan_in_situ) and the f32 floor: the same comparison
     with each scan's plain version in place of its kernel, i.e. two exact
     f32 evaluations in other summation orders."""
@@ -1024,15 +1107,17 @@ def model_phase(dev, cfg, params) -> dict:
     from repro_torch.kernels.ssd_scan import ssd_scan_plain
 
     prompt = torch.as_tensor(np.arange(37) % 97 + 1, device=dev)[None]
+    prefix = stub_prefix(dev, cfg, 1)
     moe_family = cfg.backbone_kind == "moe"
     routes, pinned = [], {"rows": 0, "flips": 0, "max_flip_gap": 0.0}
     with (_routing(record=routes) if moe_family
           else contextlib.nullcontext()):
-        ref, toks = _greedy_run(cfg, params, prompt, True)
+        ref, toks = _greedy_run(cfg, params, prompt, True, prefix=prefix)
     reset_launches()
     with (_routing(pin=routes, stats=pinned) if moe_family
           else contextlib.nullcontext()):
-        ker, ker_toks = _greedy_run(cfg, params, prompt, False, teacher=toks)
+        ker, ker_toks = _greedy_run(cfg, params, prompt, False, teacher=toks,
+                                    prefix=prefix)
     launches = dict(LAUNCHES)
     err = _max_err(ref, ker)
     agree = all(torch.equal(a[:, -1:].argmax(-1), b[:, -1:].argmax(-1))
@@ -1040,6 +1125,7 @@ def model_phase(dev, cfg, params) -> dict:
     out = {"phase": "model", "arch": cfg.arch_id, "n_layers": cfg.n_layers,
            "dtype": "float32",
            "prompt_len": 37, "decode_steps": 8,
+           "prefix_rows": 0 if prefix is None else prefix.shape[1],
            "logits_max_abs_err": err,
            "logits_max_abs": max(   # padded vocab columns hold -1e30
                float(x[..., :cfg.vocab_size].abs().max()) for x in ref),
@@ -1391,6 +1477,7 @@ def serve_phase(dev, arch: str, kernels: tuple, mode: str = "virtual",
                               kv_cache_dtype=kv_cache_dtype)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    marks = [("start", time.perf_counter())]
     if params is None:
         params = init_params(cfg, seed=0, device=dev)
     params_gb = torch.cuda.memory_allocated() / 1e9
@@ -1399,12 +1486,13 @@ def serve_phase(dev, arch: str, kernels: tuple, mode: str = "virtual",
     graph_hooks.reset()
     engine.generate(np.ones((1, 16), np.int32), [4], max_extra_tokens=0)
     warm_captures = graph_hooks.capture_counts().get("engine.chunk", 0)
+    marks.append(("warm", time.perf_counter()))
     timers = {"prefill_s": 0.0, "generate_s": 0.0, "prefills": 0}
     prefill, generate = engine.prefill, engine.generate
 
-    def timed_prefill(prompts):
+    def timed_prefill(*args, **kwargs):
         t0 = time.perf_counter()
-        out = prefill(prompts)
+        out = prefill(*args, **kwargs)
         torch.cuda.synchronize()
         timers["prefill_s"] += time.perf_counter() - t0
         timers["prefills"] += 1
@@ -1425,6 +1513,7 @@ def serve_phase(dev, arch: str, kernels: tuple, mode: str = "virtual",
     allocation = dict(zip(prob.tasks.names,
                           sol.lengths_int.astype(int).tolist()))
     print("allocation:", json.dumps(allocation))
+    marks.append(("setup", time.perf_counter()))
     graph_hooks.reset()
     reset_launches()
     t0 = time.perf_counter()
@@ -1474,13 +1563,21 @@ def serve_phase(dev, arch: str, kernels: tuple, mode: str = "virtual",
               f"{arch} serve: {name} launched {launches.get(name, 0)} "
               f"times in {graph['steps']} replayed steps, expected {n}")
     engine.prefill, engine.generate = prefill, generate
+    marks.append(("run", time.perf_counter()))
     if cfg.kv_cache_dtype == "int8":
         out["kv_cache"] = int8_cache_cost(engine)
     if cfg.backbone_kind == "moe":
         check_step_reads_no_host(engine)
+    marks.append(("checks", time.perf_counter()))
     out["pin"] = eager_graph_pin(engine, stream, srv.completed)
+    marks.append(("pin", time.perf_counter()))
     print(json.dumps({**decode_step_breakdown(engine), "arch": arch,
                       "kv_cache_dtype": cfg.kv_cache_dtype}))
+    marks.append(("breakdown", time.perf_counter()))
+    print(json.dumps({"phase": "serve_seconds", "arch": arch,
+                      "kv_cache_dtype": cfg.kv_cache_dtype,
+                      **{name: t - marks[i][1]
+                         for i, (name, t) in enumerate(marks[1:])}}))
     out["completed"] = [(c.n_tokens, c.service_time) for c in srv.completed]
     return out
 
@@ -1563,8 +1660,11 @@ def decode_step_breakdown(engine, steps: int = 16) -> dict:
             state["token"], state["cache"], None)
     for _ in range(4):                               # warm
         eager()
+    t0 = time.perf_counter()
     out = {"phase": "decode_step_breakdown",
-           "eager": profile_steps(eager, steps, steps)}
+           "eager": profile_steps(eager, steps, steps,
+                                  profiled_calls=EAGER_PROFILED_STEPS)}
+    out["eager_s"] = time.perf_counter() - t0
     logits, cache = engine.prefill(prompt)
     big = np.array([10 ** 6], np.int32)
     key, _, step = engine._prepare(logits.argmax(-1), cache, big, big, None,
@@ -1574,16 +1674,21 @@ def decode_step_breakdown(engine, steps: int = 16) -> dict:
         engine._graphs.run(key, step)
     for _ in range(4):
         replay()
+    t0 = time.perf_counter()
     out["graph"] = profile_steps(replay, steps, steps)
+    out["graph_s"] = time.perf_counter() - t0
     out["wall_speedup"] = (out["eager"]["wall_ms_per_step"]
                            / out["graph"]["wall_ms_per_step"])
     return out
 
 
-def profile_steps(run, n_calls: int, steps: int) -> dict:
+def profile_steps(run, n_calls: int, steps: int,
+                  profiled_calls: int | None = None) -> dict:
     """Host wall time per decode step of ``run`` (called ``n_calls`` times,
     ``steps`` decode steps in all, synchronised) against the device time
-    of the kernels the profiler saw in a second, profiled run."""
+    of the kernels the profiler saw in a second, profiled run of
+    ``profiled_calls`` calls (default ``n_calls``: the profiler's cost
+    grows with the ops it records, an eager step's thousands among them)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1593,11 +1698,13 @@ def profile_steps(run, n_calls: int, steps: int) -> dict:
         run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    profiled_calls = profiled_calls or n_calls
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_calls):
+        for _ in range(profiled_calls):
             run()
         torch.cuda.synchronize()
+    profiled_steps = steps * profiled_calls / n_calls
     per_kernel = {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:    # CPU ops would count twice
@@ -1605,10 +1712,11 @@ def profile_steps(run, n_calls: int, steps: int) -> dict:
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
         if us > 0:
-            per_kernel[ev.key] = us / 1e3 / steps
+            per_kernel[ev.key] = us / 1e3 / profiled_steps
     device_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    return {"steps": steps, "wall_ms_per_step": wall_ms,
+    return {"steps": steps, "profiled_steps": profiled_steps,
+            "wall_ms_per_step": wall_ms,
             "device_ms_per_step": device_ms,
             "device_busy_share": device_ms / wall_ms,
             "top_device_ms_per_step": {k[:80]: v for k, v in top}}
@@ -3263,6 +3371,307 @@ def replay_engine_phase(dev, cfg, params, calibration: dict) -> dict:
     return out
 
 
+def prefix_generate_phase(dev, cfg, params) -> dict:
+    """``DecodeEngine.generate`` with the stub frontend's prefix: two rows
+    of ``n_prefix_embeds`` embeddings in front of 37-token prompts
+    (budgets PREFIX_BUDGETS, 8 answer tokens) in a cache of prefix +
+    prompt + 64 slots, decoding from position P + 37. The replayed graph
+    (first call: its capture; second: replays only) and the eager
+    per-token loop: tokens equal, exact budgets; the first call's
+    launches exact (flash once a layer for the prefill, slot decode once
+    a layer a step, the FFN once a layer a step and prefill for a SwiGLU
+    model, never for a GELU one); decode tokens/s and ms a step against
+    the weights' floor (their bytes at 3.35 TB/s)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.obs import graph_hooks
+    from repro_torch.serving import DecodeEngine
+    from repro_torch.train.tree import tree_leaves
+
+    B = len(PREFIX_BUDGETS)
+    prefix = stub_prefix(dev, cfg, B, seed=1)
+    P = prefix.shape[1]
+    prompts = (np.arange(B * PREFIX_PROMPT).reshape(B, PREFIX_PROMPT) % 97
+               + 1).astype(np.int32)
+    extra, chunk = 8, 16
+    engine = DecodeEngine(cfg, params, cache_capacity=P + PREFIX_PROMPT + 64,
+                          chunk=chunk)
+    prefill_s = [0.0]
+    prefill = engine.prefill
+
+    def timed_prefill(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = prefill(*args, **kwargs)
+        torch.cuda.synchronize()
+        prefill_s[0] += time.perf_counter() - t0
+        return out
+    engine.prefill = timed_prefill
+    runs = {}
+    graph_hooks.reset()
+    for name, use_scan in (("graph_capture", True), ("graph", True),
+                           ("eager_loop", False)):
+        if name == "graph":
+            graph_hooks.reset()
+        reset_launches()
+        prefill_s[0] = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.generate(prompts, list(PREFIX_BUDGETS),
+                              max_extra_tokens=extra, prefix_embeds=prefix,
+                              use_scan=use_scan)
+        wall = time.perf_counter() - t0
+        n = int(res["n_generated"].sum())
+        steps = (graph_stats("engine.chunk", chunk)["steps"] if use_scan
+                 else int(res["n_generated"].max()) - 1)
+        runs[name] = {"wall_s": wall, "prefill_s": prefill_s[0],
+                      "decode_s": wall - prefill_s[0], "steps": steps,
+                      "decode_tokens_per_s": n / (wall - prefill_s[0]),
+                      "decode_ms_per_step": (wall - prefill_s[0]) * 1e3
+                      / max(steps, 1),
+                      "launches": dict(LAUNCHES), "res": res}
+    engine.prefill = prefill
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    floor_ms = weights / HBM_BYTES_PER_S * 1e3
+    first = runs["graph_capture"]
+    graph = graph_stats("engine.chunk", chunk)
+    expected = {"flash_attention": cfg.n_layers,
+                **decode_launches_expected(cfg, first["steps"]),
+                "fused_ffn": (cfg.n_layers * (first["steps"] + 1)
+                              if cfg.gated_mlp else 0)}
+    tokens = [r.pop("res") for r in runs.values()]
+    out = {"phase": "prefix_generate", "arch": cfg.arch_id,
+           "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "prefix": list(prefix.shape), "prompt_len": PREFIX_PROMPT,
+           "budgets": list(PREFIX_BUDGETS), "max_extra_tokens": extra,
+           "cache_capacity": engine.capacity,
+           "weights_gb": weights / 1e9, "weights_floor_ms_per_step": floor_ms,
+           "graph_step_over_floor": runs["graph"]["decode_ms_per_step"]
+           / floor_ms, "runs": runs, "graph_replays_only": graph,
+           "launches_expected": expected,
+           "n_generated": tokens[0]["n_generated"].tolist(),
+           "tokens_equal": all(np.array_equal(t["tokens"],
+                                              tokens[0]["tokens"])
+                               for t in tokens)}
+    print(json.dumps(out))
+    check(out["tokens_equal"], f"{cfg.arch_id} prefix generate: graph and "
+          f"eager tokens differ")
+    check(out["n_generated"] == [b + extra for b in PREFIX_BUDGETS],
+          f"{cfg.arch_id} prefix generate: {out['n_generated']} tokens")
+    for name, n in expected.items():
+        check(first["launches"].get(name, 0) == n,
+              f"{cfg.arch_id} prefix generate: {name} launched "
+              f"{first['launches'].get(name, 0)} times, expected {n}")
+    check(graph["captures"] == 0 and graph["host_reads_per_chunk"] == 1,
+          f"{cfg.arch_id} prefix generate: the second call {graph}")
+    return out
+
+
+TRAIN_ARGS = ["--arch", "olmo-1b", "--steps", "30", "--batch", "8",
+              "--seq", "64", "--lr", "3e-3", "--log-every", "5"]
+TRAIN_PEAK_FLOPS = 989e12     # bf16 dense tensor-core peak, H100 SXM
+RESUME_RTOL = 1e-6
+
+
+def train_phase(dev) -> dict:
+    """Training on the card. (1) ``repro_torch.launch.train.main`` on
+    full-width olmo-1b in bf16 (batch 8 x 64 tokens, 30 steps, lr 3e-3):
+    every loss finite, the mean of the last 5 below the first 5's, no
+    kernel launched (the trainer runs the reference math, as the JAX
+    package trains through jnp: no Pallas kernel there has a VJP); median
+    step ms, tokens/s, peak memory and the model-FLOP share 6 N tokens /
+    (step time x 989 TFLOP/s). (2) On reduced olmo-1b: 4 steps, a
+    checkpoint, a restore into a fresh state, 4 more, against 8 steps
+    uninterrupted, as the card runs by default and under PyTorch's
+    deterministic algorithms: losses within 1e-6 relative, whether
+    bitwise. (3) A
+    kernel called on a CUDA tensor that requires grad raises."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.kernels import (LAUNCHES, flash_attention, fused_ffn,
+                                     reset_launches)
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import reduced
+    from repro_torch import train
+    from repro_torch.train.tree import tree_leaves
+
+    cfg = get_config("olmo-1b")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    log = train_launch.main(TRAIN_ARGS + ["--device", str(dev)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launched = {k: v for k, v in LAUNCHES.items() if v}
+    losses = log["loss"]
+    step_s = statistics.median(log["step_s"][1:])
+    tokens = 8 * 64
+    out = {"phase": "train", "arch": cfg.arch_id, "args": TRAIN_ARGS,
+           "dtype": cfg.dtype, "params": cfg.param_count(), "wall_s": wall,
+           "first_step_s": log["step_s"][0],
+           "median_step_ms": step_s * 1e3,
+           "tokens_per_s": tokens / step_s, "peak_memory_gb": peak_gb,
+           "model_flop_share": 6 * cfg.param_count() * tokens
+           / (step_s * TRAIN_PEAK_FLOPS),
+           "loss": losses, "grad_norm": log["grad_norm"],
+           "loss_first5_mean": float(np.mean(losses[:5])),
+           "loss_last5_mean": float(np.mean(losses[-5:])),
+           "kernel_launches": launched}
+    print(json.dumps(out))
+    check(bool(np.isfinite(losses).all()), "train: a loss is not finite")
+    check(out["loss_last5_mean"] < out["loss_first5_mean"],
+          f"train: loss did not fall ({out['loss_first5_mean']} -> "
+          f"{out['loss_last5_mean']})")
+    check(not launched, f"train: kernels launched {launched}")
+    out["step_profile"] = train_step_profile(dev, cfg)
+    print(json.dumps({"phase": "train_step_profile", "arch": cfg.arch_id,
+                      **out["step_profile"]}))
+
+    small = reduced(cfg)
+    data = SyntheticTokens(DataConfig(vocab_size=small.vocab_size,
+                                      seq_len=32, batch_size=4))
+    step = train.make_train_step(small, train.AdamWConfig(
+        lr=3e-3, warmup_steps=5, total_steps=8))
+    ck = ROOT / "build" / "chip_smoke_ckpt"
+
+    def resume_check() -> dict:
+        state = train.init_train_state(small, seed=0, device=dev)
+        straight, resumed = [], []
+        s = state
+        for i in range(8):
+            s, m = step(s, {"tokens": data.batch(i)["tokens"]})
+            straight.append(float(m["loss"]))
+        r = state
+        for i in range(4):
+            r, m = step(r, {"tokens": data.batch(i)["tokens"]})
+            resumed.append(float(m["loss"]))
+        train.save_checkpoint(str(ck), r, step=4)
+        r = train.restore_checkpoint(str(ck), train.init_train_state(
+            small, seed=1, device=dev))
+        shutil.rmtree(ck)
+        for i in range(4, 8):
+            r, m = step(r, {"tokens": data.batch(i)["tokens"]})
+            resumed.append(float(m["loss"]))
+        return {"losses": resumed, "uninterrupted": straight,
+                "max_rel_diff": max(abs(a - b) / abs(b)
+                                    for a, b in zip(resumed, straight)),
+                "bitwise": resumed == straight and all(
+                    torch.equal(a, b) for a, b in
+                    zip(tree_leaves(s), tree_leaves(r)))}
+
+    # as the card runs by default (the embedding's backward accumulates
+    # through atomics), then with PyTorch's deterministic algorithms,
+    # where a lossless checkpoint leaves the resumed run bitwise
+    resume = {"arch": small.arch_id, "steps": "4 + save + restore + 4 "
+              "against 8", "tol": RESUME_RTOL, "default": resume_check()}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        resume["deterministic_algorithms"] = resume_check()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rel = max(resume[k]["max_rel_diff"]
+              for k in ("default", "deterministic_algorithms"))
+    out["resume"] = resume
+
+    guard = {}
+    x = torch.randn(1, 4, 64, device=dev, requires_grad=True)
+    w, wd = torch.randn(1, 64, 128, device=dev), torch.randn(1, 128, 64,
+                                                             device=dev)
+    q = torch.randn(1, 2, 1, 8, 64, device=dev, requires_grad=True)
+    kv = torch.randn(1, 2, 8, 64, device=dev)
+    for name, call in (("fused_ffn", lambda: fused_ffn.fused_ffn(
+            x, w, w, wd)), ("flash_attention",
+                            lambda: flash_attention.flash_attention(
+                                q, kv, kv))):
+        try:
+            call()
+            guard[name] = "no error"
+        except RuntimeError as e:
+            guard[name] = str(e)
+    out["grad_guard"] = guard
+    print(json.dumps({"phase": "train_resume_and_guard",
+                      "resume": out["resume"], "grad_guard": guard}))
+    check(rel <= RESUME_RTOL, f"train resume: losses {rel} apart")
+    check(all("forward-only" in v for v in guard.values()),
+          f"train: a kernel took an input that requires grad {guard}")
+    return out
+
+
+def train_step_profile(dev, cfg, steps: int = 3) -> dict:
+    """Where a full-width train step's time goes: ``steps`` steps of
+    ``TRAIN_ARGS``' batch (after two warm ones), host wall time a step
+    against the device time of the kernels the profiler saw, the largest
+    items."""
+    from repro_torch import train
+    from repro_torch.data import DataConfig, SyntheticTokens
+
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                      batch_size=8))
+    step = train.make_train_step(cfg, train.AdamWConfig(
+        lr=3e-3, warmup_steps=5, total_steps=30))
+    box = {"state": train.init_train_state(cfg, seed=0, device=dev), "i": 0}
+
+    def run():
+        box["state"], _ = step(box["state"],
+                               {"tokens": data.batch(box["i"])["tokens"]})
+        box["i"] += 1
+    for _ in range(2):
+        run()
+    out = profile_steps(run, steps, steps)
+    del box
+    return out
+
+
+def vlm_audio_phases(dev, by_path: dict, free) -> dict:
+    """The VLM and audio ids. llava-next-mistral-7b: the f32 check at
+    LLAVA_F32_LAYERS of 32 layers behind the 1152-row prefix, then bf16 at
+    full width and depth: the prefix generate (B 2, a [2, 1152, 4096]
+    prefix) and the 8-query serve through LLMServer (text-only, as the
+    JAX package's server). musicgen-medium: the f32 check at full depth
+    behind its 64 rows, the bf16 prefix generate and serve, and the slot
+    and paged continuous serves (8 slots, blocks of 16; text-only). Each
+    model freed before the next; each sub-phase's seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    seconds = {}
+    for arch, f32_layers in (("llava-next-mistral-7b", LLAVA_F32_LAYERS),
+                             ("musicgen-medium", None)):
+        t = time.perf_counter()
+        cfg = get_config(arch)
+        cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                    n_layers=f32_layers or cfg.n_layers)
+        params32 = init_params(cfg32, seed=0, device=dev)
+        model_phase(dev, cfg32, params32)
+        del params32
+        free()
+        seconds[f"{arch} model"] = time.perf_counter() - t
+        t = time.perf_counter()
+        params = init_params(cfg, seed=0, device=dev)
+        by_path[f"{arch} prefix generate"] = prefix_generate_phase(
+            dev, cfg, params)["runs"]["graph_capture"]["launches"]
+        seconds[f"{arch} prefix generate"] = time.perf_counter() - t
+        t = time.perf_counter()
+        kernels = ("flash_attention", "decode_attention") + (
+            ("fused_ffn",) if cfg.gated_mlp else ())
+        by_path[f"{arch} serve"] = serve_phase(dev, arch, kernels,
+                                               params=params)["launches"]
+        free()
+        seconds[f"{arch} serve"] = time.perf_counter() - t
+        if arch == "musicgen-medium":
+            for mode in ("slot", "paged"):
+                t = time.perf_counter()
+                by_path[f"{arch} continuous serve ({mode})"] = \
+                    continuous_serve_phase(dev, cfg, params,
+                                           paged=mode == "paged")["launches"]
+                free()
+                seconds[f"{arch} continuous {mode}"] = \
+                    time.perf_counter() - t
+        del params
+        free()
+    print(json.dumps({"phase": "vlm_audio_seconds", **seconds}))
+    return seconds
+
+
 REPLACES = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:98"),
@@ -3280,7 +3689,23 @@ REPLACES = {
 }
 
 
-def main() -> int:
+ONLY_GROUPS = ("kernels", "vlm_audio", "train")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on "
+                                 "one CUDA card (no arguments: every phase)")
+    ap.add_argument("--only", default=None,
+                    help="a development run of a comma-separated subset of "
+                         f"{', '.join(ONLY_GROUPS)}, after the build; it "
+                         "prints their lines and seconds, and neither the "
+                         "kernels' summary nor the ok line")
+    args = ap.parse_args(argv)
+    only = None if args.only is None else set(args.only.split(","))
+    if only is not None and not only <= set(ONLY_GROUPS):
+        ap.error(f"--only takes {ONLY_GROUPS}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -3296,29 +3721,62 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
-    per_source = _build.build()
-    print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0,
-                      "per_source_s": per_source}))
+    t_start = time.perf_counter()
+    seconds = {}
 
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    _, summary = kernel_cases(dev, flush)
-    des_lanes = des_phase(dev, flush)
-    del flush
+    @contextlib.contextmanager
+    def timed(name):
+        """Each top-level phase's seconds, printed as it ends."""
+        t = time.perf_counter()
+        yield
+        seconds[name] = time.perf_counter() - t
+        print(json.dumps({"phase": "phase_seconds", "name": name,
+                          "seconds": seconds[name],
+                          "elapsed_s": time.perf_counter() - t_start}))
+
+    with timed("build"):
+        per_source = _build.build()
+    print(json.dumps({"phase": "build", "seconds": seconds["build"],
+                      "per_source_s": per_source}))
 
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    by_path = {}
+    if only is not None:
+        if "kernels" in only:
+            flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+            with timed("kernel_cases"):
+                kernel_cases(dev, flush)
+            del flush
+        if "vlm_audio" in only:
+            with timed("vlm_audio"):
+                vlm_audio_phases(dev, by_path, free)
+        if "train" in only:
+            with timed("train"):
+                train_phase(dev)
+        print(json.dumps({"phase_seconds": seconds, "launches_by_path":
+                          by_path,
+                          "total_s": time.perf_counter() - t_start}))
+        return 0
+
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    with timed("kernel_cases"):
+        _, summary = kernel_cases(dev, flush)
+    with timed("des"):
+        des_lanes = des_phase(dev, flush)
+    del flush
 
     def f32_model(arch, n_layers=None):
         cfg32 = dataclasses.replace(get_config(arch), dtype="float32")
         if n_layers is not None:
             cfg32 = dataclasses.replace(cfg32, n_layers=n_layers)
         return cfg32, init_params(cfg32, seed=0, device=dev)
-
-    def free():
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
 
     def slot_serve(arch):
         """``arch`` in bf16 at full width through the slot continuous
@@ -3328,119 +3786,143 @@ def main() -> int:
         return continuous_serve_phase(dev, cfg, params,
                                       paged=False)["launches"]
 
-    cfg32, params32 = f32_model("qwen3-0.6b")
-    model_phase(dev, cfg32, params32)
-    paged_model_phase(dev, cfg32, params32)
-    int8_model_phase(dev, cfg32, params32)
-    del params32
-    free()
+    with timed("qwen3-0.6b model"):
+        cfg32, params32 = f32_model("qwen3-0.6b")
+        model_phase(dev, cfg32, params32)
+        paged_model_phase(dev, cfg32, params32)
+        int8_model_phase(dev, cfg32, params32)
+        del params32
+        free()
 
     attn_kernels = ("flash_attention", "decode_attention", "fused_ffn")
-    served = serve_phase(dev, "qwen3-0.6b", attn_kernels)
-    free()
-    served8 = serve_phase(dev, "qwen3-0.6b", attn_kernels,
-                          kv_cache_dtype="int8")
-    free()
-    cfg = dataclasses.replace(get_config("qwen3-0.6b"),
-                              n_layers=QWEN3_BATCHED_LAYERS)
-    params = init_params(cfg, seed=0, device=dev)
-    continuous = continuous_serve_phase(dev, cfg, params)
-    rolling_drain_phase(dev, cfg, params, continuous)
-    drain8 = rolling_drain_phase(dev, cfg, params, continuous, int8=True)
-    hooks = hooks_serve_phase(dev, cfg, params)
-    occupancy = step_latency_points(dev, cfg, params)
-    del params
-    free()
+    with timed("qwen3-0.6b serves"):
+        served = serve_phase(dev, "qwen3-0.6b", attn_kernels)
+        free()
+        served8 = serve_phase(dev, "qwen3-0.6b", attn_kernels,
+                              kv_cache_dtype="int8")
+        free()
+    with timed("qwen3-0.6b batched"):
+        cfg = dataclasses.replace(get_config("qwen3-0.6b"),
+                                  n_layers=QWEN3_BATCHED_LAYERS)
+        params = init_params(cfg, seed=0, device=dev)
+        continuous = continuous_serve_phase(dev, cfg, params)
+        rolling_drain_phase(dev, cfg, params, continuous)
+        drain8 = rolling_drain_phase(dev, cfg, params, continuous, int8=True)
+        hooks = hooks_serve_phase(dev, cfg, params)
+        occupancy = step_latency_points(dev, cfg, params)
+        del params
+        free()
 
     # the recurrent and hybrid paths, then the paper's model: each model
     # freed before the next
-    by_path = {"qwen3-0.6b serve": served["launches"],
-               "qwen3-0.6b continuous serve": continuous["launches"],
-               "qwen3-0.6b int8 serve": served8["launches"],
-               "qwen3-0.6b int8 paged drain": drain8["paged"]["launches"],
-               "qwen3-0.6b hooks serve": hooks["launches"]}
+    by_path.update({
+        "qwen3-0.6b serve": served["launches"],
+        "qwen3-0.6b continuous serve": continuous["launches"],
+        "qwen3-0.6b int8 serve": served8["launches"],
+        "qwen3-0.6b int8 paged drain": drain8["paged"]["launches"],
+        "qwen3-0.6b hooks serve": hooks["launches"]})
     for arch, kernels in (("rwkv6-1.6b", ("rwkv6_scan",)),
                           ("zamba2-7b", ("ssd_scan",) + attn_kernels)):
-        cfg32, params32 = f32_model(arch)
-        model_phase(dev, cfg32, params32)
-        del params32
-        free()
-        by_path[f"{arch} serve"] = serve_phase(dev, arch, kernels)["launches"]
-        free()
-        by_path[f"{arch} continuous serve"] = slot_serve(arch)
-        free()
-        by_path[f"{arch} recurrent drain"] = recurrent_drain_phase(
-            dev, arch)["launches"]
-        free()
+        with timed(arch):
+            cfg32, params32 = f32_model(arch)
+            model_phase(dev, cfg32, params32)
+            del params32
+            free()
+            by_path[f"{arch} serve"] = serve_phase(dev, arch,
+                                                   kernels)["launches"]
+            free()
+            by_path[f"{arch} continuous serve"] = slot_serve(arch)
+            free()
+            by_path[f"{arch} recurrent drain"] = recurrent_drain_phase(
+                dev, arch)["launches"]
+            free()
     # the other dense ids: LayerNorm without parameters (olmo-1b),
     # LayerNorm (stablelm-3b), LayerNorm, GELU MLP and a sliding window
     # (starcoder2-3b, also through the continuous engine)
     for arch in ("olmo-1b", "stablelm-3b", "starcoder2-3b"):
-        cfg32, params32 = f32_model(arch)
-        model_phase(dev, cfg32, params32)
-        if cfg32.sliding_window is not None:
-            by_path[f"{arch} window check"] = window_phase(
-                dev, cfg32, params32)["launches"]
-        del params32
-        free()
-        kernels = ("flash_attention", "decode_attention") + (
-            ("fused_ffn",) if cfg32.gated_mlp else ())
-        by_path[f"{arch} serve"] = serve_phase(dev, arch, kernels)["launches"]
-        free()
-    by_path["starcoder2-3b continuous serve"] = slot_serve("starcoder2-3b")
-    free()
+        with timed(arch):
+            cfg32, params32 = f32_model(arch)
+            model_phase(dev, cfg32, params32)
+            if cfg32.sliding_window is not None:
+                by_path[f"{arch} window check"] = window_phase(
+                    dev, cfg32, params32)["launches"]
+            del params32
+            free()
+            kernels = ("flash_attention", "decode_attention") + (
+                ("fused_ffn",) if cfg32.gated_mlp else ())
+            by_path[f"{arch} serve"] = serve_phase(dev, arch,
+                                                   kernels)["launches"]
+            free()
+            if arch == "starcoder2-3b":
+                by_path[f"{arch} continuous serve"] = slot_serve(arch)
+                free()
     # the MoE ids: deepseek-moe-16b (the f32 check at DS_F32_LAYERS of its
     # 28 layers; bf16 at full depth through DecodeEngine, then the slot and
     # the paged continuous engine on the same weights) and
     # granite-moe-3b-a800m (the f32 check at full depth, the bf16 serve)
     for arch, f32_layers in (("deepseek-moe-16b", DS_F32_LAYERS),
                              ("granite-moe-3b-a800m", None)):
-        seconds = {}
+        moe_s = {}
         t_moe = time.perf_counter()
-        cfg32, params32 = f32_model(arch, n_layers=f32_layers)
+        with timed(arch):
+            cfg32, params32 = f32_model(arch, n_layers=f32_layers)
+            model_phase(dev, cfg32, params32)
+            del params32
+            free()
+            moe_s["model"] = time.perf_counter() - t_moe
+            cfg_m = get_config(arch)
+            params_m = init_params(cfg_m, seed=0, device=dev)
+            by_path[f"{arch} serve"] = serve_phase(
+                dev, arch, attn_kernels, params=params_m)["launches"]
+            free()
+            moe_s["serve"] = time.perf_counter() - t_moe - sum(moe_s.values())
+            if arch == "deepseek-moe-16b":
+                for mode in ("slot", "paged"):
+                    by_path[f"{arch} continuous serve ({mode})"] = \
+                        continuous_serve_phase(
+                            dev, cfg_m, params_m,
+                            paged=mode == "paged")["launches"]
+                    free()
+                    moe_s[f"continuous_{mode}"] = (
+                        time.perf_counter() - t_moe - sum(moe_s.values()))
+            del params_m
+            free()
+        print(json.dumps({"phase": "moe_seconds", "arch": arch, **moe_s,
+                          "total": time.perf_counter() - t_moe}))
+    # the VLM and audio ids behind their stub frontends' prefixes, then
+    # training: each model freed before the next
+    with timed("vlm_audio"):
+        vlm_audio_phases(dev, by_path, free)
+    with timed("train"):
+        train_phase(dev)
+        free()
+    with timed("qwen3-8b"):
+        cfg32, params32 = f32_model("qwen3-8b",
+                                    n_layers=QWEN3_8B_F32_LAYERS)
         model_phase(dev, cfg32, params32)
+        paged_model_phase(dev, cfg32, params32)
         del params32
         free()
-        seconds["model"] = time.perf_counter() - t_moe
-        cfg_m = get_config(arch)
-        params_m = init_params(cfg_m, seed=0, device=dev)
-        by_path[f"{arch} serve"] = serve_phase(
-            dev, arch, attn_kernels, params=params_m)["launches"]
+        # the paper's model at full width: its weights serve the
+        # wall-clock serve, then the closed loop's engine lane, one init
+        # for both
+        cfg8 = get_config("qwen3-8b")
+        params8 = init_params(cfg8, seed=0, device=dev)
+        served_8b = serve_phase(dev, "qwen3-8b", attn_kernels, mode="wall",
+                                params=params8)
+        by_path["qwen3-8b serve"] = served_8b["launches"]
         free()
-        seconds["serve"] = time.perf_counter() - t_moe - sum(seconds.values())
-        if arch == "deepseek-moe-16b":
-            for mode in ("slot", "paged"):
-                by_path[f"{arch} continuous serve ({mode})"] = \
-                    continuous_serve_phase(dev, cfg_m, params_m,
-                                           paged=mode == "paged")["launches"]
-                free()
-                seconds[f"continuous_{mode}"] = (time.perf_counter() - t_moe
-                                                 - sum(seconds.values()))
-        del params_m
+    with timed("calibration and replay engine"):
+        calibration = calibration_phase(served_8b, occupancy)
+        by_path["qwen3-8b replay engine"] = replay_engine_phase(
+            dev, cfg8, params8, calibration)["launches"]
+        del params8
         free()
-        print(json.dumps({"phase": "moe_seconds", "arch": arch, **seconds,
-                          "total": time.perf_counter() - t_moe}))
-    cfg32, params32 = f32_model("qwen3-8b", n_layers=QWEN3_8B_F32_LAYERS)
-    model_phase(dev, cfg32, params32)
-    paged_model_phase(dev, cfg32, params32)
-    del params32
-    free()
-    # the paper's model at full width: its weights serve the wall-clock
-    # serve, then the closed loop's engine lane, one init for both
-    cfg8 = get_config("qwen3-8b")
-    params8 = init_params(cfg8, seed=0, device=dev)
-    served_8b = serve_phase(dev, "qwen3-8b", attn_kernels, mode="wall",
-                            params=params8)
-    by_path["qwen3-8b serve"] = served_8b["launches"]
-    free()
-    calibration = calibration_phase(served_8b, occupancy)
-    by_path["qwen3-8b replay engine"] = replay_engine_phase(
-        dev, cfg8, params8, calibration)["launches"]
-    del params8
-    free()
-    swept = sweeps_phase(dev)["launches"]
-    replay_phase(dev)
-    replay_drift_phase(dev)
+    with timed("sweeps"):
+        swept = sweeps_phase(dev)["launches"]
+    with timed("replay"):
+        replay_phase(dev)
+        replay_drift_phase(dev)
     for row in des_lanes:
         if row["name"] in swept:
             row["launches_sweeps"] = swept[row["name"]]
@@ -3471,6 +3953,8 @@ def main() -> int:
                             path: counts[name]
                             for path, counts in by_path.items()
                             if counts.get(name)}})
+    print(json.dumps({"phase_seconds": seconds,
+                      "total_s": time.perf_counter() - t_start}))
     print(json.dumps({"des_lanes": des_lanes}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

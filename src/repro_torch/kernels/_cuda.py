@@ -12,6 +12,25 @@ from . import _build
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def refuse_grad(name: str, tensors) -> None:
+    """Raise when autograd would record through kernel ``name``: grad mode
+    on and an input that requires grad. The kernels are forward-only, as
+    the JAX package's Pallas kernels are (none has a VJP), and a ctypes
+    launch leaves its output without a ``grad_fn``, so a backward pass
+    through one would silently drop the gradient of everything before
+    it. Training runs the reference math (``force_ref``) instead.
+    ``tensors``: the inputs (``None`` entries are skipped)."""
+    if not torch.is_grad_enabled():
+        return
+    for t in tensors:
+        if t is not None and t.requires_grad:
+            raise RuntimeError(
+                f"{name}: an input requires grad, but the port's kernels "
+                f"are forward-only, as the JAX package's are; run the "
+                f"reference math (force_ref=True) to differentiate, or "
+                f"call under torch.no_grad()")
+
+
 def check(name: str, tensors: dict) -> torch.device:
     """Raise unless every tensor lies on one CUDA device, in one supported
     dtype, with a contiguous last dimension."""

@@ -121,6 +121,7 @@ def decode_attention(q, k, v, valid) -> torch.Tensor:
 
 def _launch(q, k, v, valid):
     name = "decode_attention"
+    _cuda.refuse_grad(name, (q, k, v, valid))
     dev = _cuda.check(name, {"q": q, "k": k, "v": v})
     B, H, G, hd = q.shape
     C = k.shape[2]
@@ -200,6 +201,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables,
 
 def _launch_paged(q, k_pool, v_pool, block_tables, pos):
     name = "paged_decode_attention"
+    _cuda.refuse_grad(name, (q, k_pool, v_pool, block_tables, pos))
     dev = _cuda.check(name, {"q": q, "k_pool": k_pool, "v_pool": v_pool})
     B, H, G, hd = q.shape
     P, bs = k_pool.shape[:2]

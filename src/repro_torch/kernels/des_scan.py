@@ -40,7 +40,9 @@ _D = ctypes.c_double
 
 def _check(name: str, tensors: dict) -> torch.device:
     """Raise unless every tensor lies on one CUDA device, contiguous, in
-    its stated dtype."""
+    its stated dtype; and, as every kernel's, raise on an input that
+    requires grad (``_cuda.refuse_grad``)."""
+    _cuda.refuse_grad(name, [t for t, _ in tensors.values()])
     first = next(iter(tensors.values()))[0]
     dev = first.device
     if dev.type != "cuda":

@@ -161,6 +161,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 def _launch(q, k, v, causal, window):
     name = "flash_attention"
+    _cuda.refuse_grad(name, (q, k, v))
     dev = _cuda.check(name, {"q": q, "k": k, "v": v})
     B, H, G, S, hd = q.shape
     if tuple(k.shape) != (B, H, S, hd) or tuple(v.shape) != (B, H, S, hd):

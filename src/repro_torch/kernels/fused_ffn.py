@@ -192,6 +192,7 @@ def _launch_shape(n_rows: int, E: int, f: int, sms: int, d: int) -> tuple:
 
 def _launch(x, wg, wu, wd, rows=None):
     name = "fused_ffn"
+    _cuda.refuse_grad(name, (x, wg, wu, wd, rows))
     dev = _cuda.check(name, {"x": x, "wg": wg, "wu": wu, "wd": wd})
     E, T, d = x.shape
     f = wg.shape[-1]

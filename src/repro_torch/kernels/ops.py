@@ -7,8 +7,11 @@ kernels' layouts as strided views, so no operand is copied.
 
 Dispatch: the kernel modules take the plain version for a CPU tensor and
 launch the Hopper kernel for a CUDA tensor, or raise. ``force_ref=True``
-bypasses both and runs the JAX package's oracle (``ref``); only tests and
-``chip_smoke.py`` pass it.
+bypasses both and runs the JAX package's oracle (``ref``). Tests and
+``chip_smoke.py`` pass it to hold the kernels against that math, and the
+trainer (``train/trainer.py``) to differentiate: the kernels are
+forward-only, as the JAX package's are, and refuse an input that
+requires grad (``_cuda.refuse_grad``).
 """
 from __future__ import annotations
 

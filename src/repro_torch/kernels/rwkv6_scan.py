@@ -121,6 +121,7 @@ def rwkv6_scan(r, k, v, la, u):
 
 def _launch(r, k, v, la, u):
     name = "rwkv6_scan"
+    _cuda.refuse_grad(name, (r, k, v, la, u))
     dev = _cuda.check(name, {"r": r, "k": k, "v": v})
     B, H, S, hd = r.shape
     for arg, t in (("k", k), ("v", v), ("la", la)):

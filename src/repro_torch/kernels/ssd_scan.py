@@ -112,6 +112,7 @@ def ssd_scan(x, dt, a, Bm, Cm):
 
 def _launch(x, dt, a, Bm, Cm):
     name = "ssd_scan"
+    _cuda.refuse_grad(name, (x, dt, a, Bm, Cm))
     dev = _cuda.check(name, {"x": x, "Bm": Bm, "Cm": Cm})
     B, H, S, hd = x.shape
     ds = Bm.shape[-1]

@@ -1,15 +1,18 @@
 """Model configuration for the families the port runs.
 
-The fields mirror ``repro.models.config.ModelConfig`` for the four
-families that are ported: the dense GQA transformer (``dense``: RMS norm,
+The fields mirror ``repro.models.config.ModelConfig`` for all six of its
+families: the dense GQA transformer (``dense``: RMS norm,
 LayerNorm or OLMo's LayerNorm without parameters, a SwiGLU or GELU MLP,
 full or sliding-window attention), the fine-grained mixture of experts
 (``moe``: the dense decoder's attention with a routed-expert FFN, top-k
 token choice plus always-on shared experts, DeepSeek-MoE / Granite
 style), the recurrent stack (``ssm``: RWKV6 blocks when the config
-carries an ``RWKVConfig``, Mamba2 otherwise) and the hybrid (``hybrid``: a
+carries an ``RWKVConfig``, Mamba2 otherwise), the hybrid (``hybrid``: a
 Mamba2 backbone plus ONE weight-shared attention+MLP block applied after
-every ``attn_every`` Mamba2 layers, Zamba2-style). The JAX package's
+every ``attn_every`` Mamba2 layers, Zamba2-style) and the VLM and audio
+stubs (``vlm``, ``audio``: the dense decoder behind a stubbed modality
+frontend that supplies ``n_prefix_embeds`` pre-projected embeddings at
+``d_model``, which ``forward`` takes as ``prefix_embeds``). The JAX package's
 kernel flags (``use_kernels``, ``use_decode_kernel``) have no counterpart:
 in the port the device decides, and on a CUDA device the model always
 goes through the Hopper kernels. Two differences from the JAX config:
@@ -27,8 +30,8 @@ import torch
 
 from ..compat import torch_dtype
 
-#: families the port runs; the JAX package's others raise in ``validate``
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: families the port runs: all six of the JAX package's
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 #: the MoE's dispatch implementations (``models/moe.py``)
 MOE_IMPLS = ("capacity", "ragged", "dense")
 #: decode KV cache storage types
@@ -96,6 +99,16 @@ class ModelConfig:
     # absmax quantisation per (position, head), f32 scales beside the
     # codes; the slot cache and the paged pool both)
     kv_cache_dtype: str = "model"
+    # modality stub (vlm/audio): number of prefix embedding positions the
+    # frontend supplies (pre-projected to d_model); 0 = text-only
+    n_prefix_embeds: int = 0
+    # activation checkpointing in a forward that records gradients: each
+    # block recomputes its activations in the backward pass (a forward
+    # that records none, as every serve's, runs as is)
+    remat: bool = True
+    remat_group: bool = False               # hybrid: checkpoint whole groups
+                                            # (attn_every blocks + the shared
+                                            # block) rather than single blocks
     source: str = ""
 
     @property
@@ -203,6 +216,9 @@ class ModelConfig:
                 raise ValueError("top_k must be <= n_experts")
             if m.impl not in MOE_IMPLS:
                 raise ValueError(f"MoE impl {m.impl!r} not in {MOE_IMPLS}")
+        if self.family in ("vlm", "audio") and self.n_prefix_embeds <= 0:
+            raise ValueError("modality stub needs prefix slots "
+                             "(n_prefix_embeds > 0)")
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r} not in "
                              f"{KV_CACHE_DTYPES}")
@@ -218,8 +234,9 @@ class ModelConfig:
 def reduced(cfg: ModelConfig, n_layers: int = 2,
             d_model: int = 256) -> ModelConfig:
     """Small variant of the same family for CPU tests (2 layers, d_model 256,
-    f32, a sliding window cut to 64; a MoE at most 4 experts, top-2, one
-    shared expert, capacity factor 8), the same reduction as
+    f32, a sliding window cut to 64, at most 8 prefix embeddings, no
+    activation checkpointing; a MoE at most 4 experts, top-2, one shared
+    expert, capacity factor 8), the same reduction as
     ``repro.models.config.reduced``."""
     scale = d_model / cfg.d_model
     n_heads = max(1, min(cfg.n_heads, 4))
@@ -247,6 +264,8 @@ def reduced(cfg: ModelConfig, n_layers: int = 2,
         d_ff=max(64, int(cfg.d_ff * scale)),
         vocab_size=min(cfg.vocab_size, 512),
         sliding_window=(64 if cfg.sliding_window else None),
+        n_prefix_embeds=min(cfg.n_prefix_embeds, 8),
         moe=moe, ssm=ssm, rwkv=rwkv,
         dtype="float32",
+        remat=False,
     )

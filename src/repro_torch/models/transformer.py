@@ -22,7 +22,8 @@ True)``).
 
 Entry points:
     init_params(cfg, seed, device)
-    forward(cfg, params, tokens, return_cache=False, cache_capacity=None)
+    forward(cfg, params, tokens, prefix_embeds=None, return_cache=False,
+            cache_capacity=None)
     decode_step(cfg, params, token, cache)   # slot, paged or recurrent
     init_decode_cache(cfg, batch, capacity, device)
 """
@@ -31,6 +32,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..compat import DEFAULT_DEVICE, resolve_device
 from . import attention, mamba2, moe, rwkv6
@@ -166,12 +168,44 @@ def _block_forward(cfg: ModelConfig, kind: str, p: dict, x: Tensor,
     raise ValueError(f"unknown block kind {kind!r}")
 
 
+def _records_grad(params: dict, x: Tensor) -> bool:
+    """Whether this forward builds an autograd graph: grad mode on and the
+    input or a block parameter requiring grad (serves hold parameters that
+    do not, so remat never wraps a serve's blocks)."""
+    if not torch.is_grad_enabled():
+        return False
+    if x.requires_grad:
+        return True
+    stack = [params["blocks"], params.get("shared_attn", {})]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, Tensor) and node.requires_grad:
+            return True
+    return False
+
+
+def _remat(fn):
+    """``fn`` under activation checkpointing: its activations are dropped
+    after the forward and recomputed in the backward pass."""
+    def wrapped(*args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return wrapped
+
+
 def forward(cfg: ModelConfig, params: dict, tokens: Tensor,
+            prefix_embeds: Optional[Tensor] = None,
             return_cache: bool = False,
             cache_capacity: Optional[int] = None,
             force_ref: bool = False) -> ModelOutput:
-    """tokens [B, S] -> logits [B, S, V].
+    """tokens [B, S] -> logits [B, P + S, V].
 
+    ``prefix_embeds`` ``[B, P, d]`` (the VLM and audio families' stubbed
+    frontend: image patches or conditioning frames at ``d_model``) go in
+    front of the token embeddings, cast to their dtype; positions run over
+    all ``P + S`` rows, and so do the logits and the cache (callers slice
+    the logits).
     ``return_cache`` returns the decode seeds stacked on the layer axes:
     ``{"layers": (k, v)}`` ``[L, B, S, nkv, hd]`` (dense and MoE),
     ``{"layers": RWKVCache}`` (recurrent), or for the hybrid
@@ -181,21 +215,31 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor,
     fixed-capacity ``KVCache``s (``QuantKVCache``s when the config's KV
     cache is int8). ``force_ref`` runs the JAX package's reference math in
     place of the kernels. ``aux_loss`` sums the MoE layers' load-balance
-    losses (0 for the other families).
+    losses (0 for the other families). With ``cfg.remat`` a forward that
+    records gradients checkpoints each block (with ``remat_group``, the
+    hybrid's groups of ``attn_every`` blocks plus the shared block) and
+    recomputes it in the backward pass, as the JAX package's
+    ``jax.checkpoint`` does; a forward that records none runs as is.
     """
     x = embed_tokens(cfg, params["embed"], tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     kind = cfg.backbone_kind
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and _records_grad(params, x)
+    group_remat = remat and cfg.has_shared_attn and cfg.remat_group
+
+    def run_block(kind_, p, x):
+        return _block_forward(cfg, kind_, p, x, positions, force_ref)
+
+    block_fn = _remat(run_block) if remat and not group_remat else run_block
+    aux_parts = []
 
     def block(i, x):
-        nonlocal aux_total
-        x, seed, aux = _block_forward(cfg, kind,
-                                      _layer_at(params["blocks"], i), x,
-                                      positions, force_ref)
+        x, seed, aux = block_fn(kind, _layer_at(params["blocks"], i), x)
         if aux is not None:
-            aux_total = aux_total + aux
+            aux_parts.append(aux)
         return x, seed
 
     cache = None
@@ -210,13 +254,18 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor,
     else:
         g, rem = _hybrid_layout(cfg)
         grouped, shared, remainder = [], [], []
-        for gi in range(g):
+
+        def group(gi, x):
             row = []
             for j in range(cfg.attn_every):
                 x, seed = block(gi * cfg.attn_every + j, x)
                 row.append(seed)
-            x, kv, _ = _block_forward(cfg, "attn", params["shared_attn"],
-                                      x, positions, force_ref)
+            x, kv, _ = block_fn("attn", params["shared_attn"], x)
+            return x, row, kv
+
+        group_fn = _remat(group) if group_remat else group
+        for gi in range(g):
+            x, row, kv = group_fn(gi, x)
             if return_cache:
                 grouped.append(_stack(row))
                 shared.append(kv)
@@ -227,6 +276,9 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor,
             cache = {"grouped": _stack(grouped) if g else None,
                      "shared": _stack(shared) if g else None,
                      "remainder": _stack(remainder) if rem else None}
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for aux in aux_parts:
+        aux_total = aux_total + aux
     x = apply_norm(cfg, params["final_norm"], x)
     logits = lm_head(cfg, params["embed"], x)
     if return_cache and cache_capacity is not None:

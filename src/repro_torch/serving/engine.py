@@ -25,7 +25,9 @@ Two execution paths share one contract, as in ``repro.serving.engine``:
   produce the same tokens.
 
 The engine runs every ported family (dense, MoE, RWKV6, the Mamba2
-hybrid) on the device its parameters live on: on a CUDA device every
+hybrid, and the VLM and audio stubs, whose frontend's embeddings
+``prefill`` and ``generate`` take as ``prefix_embeds`` ahead of the
+prompt) on the device its parameters live on: on a CUDA device every
 prefill attention, wkv or SSD scan, decode attention, SwiGLU MLP and MoE
 expert FFN goes through the Hopper kernels (a GELU MLP is PyTorch's
 matmuls, as in the JAX package), and the decode kernels run inside the
@@ -81,26 +83,41 @@ class DecodeEngine:
             () if self._generator is None else (self._generator,))
         self._static: dict = {}       # (B, chunk) -> the step's buffers
 
-    def prefill(self, prompts: np.ndarray):
-        """Prompt tokens [B, S] -> (last-position logits [B, 1, V], cache)."""
+    def prefill(self, prompts: np.ndarray,
+                prefix_embeds: Optional[np.ndarray] = None):
+        """Prompt tokens [B, S], and for the VLM and audio stubs the
+        frontend's embeddings [B, P, d] in front of them -> (last-position
+        logits [B, 1, V], cache at position P + S)."""
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
                                  device=self.device)
-        out = forward(self.cfg, self.params, tokens, return_cache=True,
+        if prefix_embeds is not None:
+            prefix_embeds = torch.as_tensor(prefix_embeds,
+                                            device=self.device)
+        out = forward(self.cfg, self.params, tokens,
+                      prefix_embeds=prefix_embeds, return_cache=True,
                       cache_capacity=self.capacity)
         return out.logits[:, -1:, :], out.cache
 
     def generate(self, prompts: np.ndarray, budgets: Sequence[int],
                  max_extra_tokens: int = 16,
+                 prefix_embeds: Optional[np.ndarray] = None,
                  eos_token: Optional[int] = None, seed: int = 0,
                  use_scan: Optional[bool] = None,
                  chunk: Optional[int] = None) -> dict:
-        """prompts [B, S] int (left-padded equally), budgets per row.
+        """prompts [B, S] int (left-padded equally), budgets per row;
+        ``prefix_embeds`` [B, P, d] go in front of the prompts (the VLM
+        and audio stubs), and decoding continues at position P + S.
 
         Returns {"tokens": [B, T] generated ids, "n_generated": [B],
         "n_reasoning": [B]} as numpy arrays. Row b generates exactly
         budgets[b] reasoning tokens, then up to max_extra_tokens answer
         tokens. ``seed`` seeds the ``torch.Generator`` that stochastic
-        sampling draws from; greedy decoding uses none.
+        sampling draws from; greedy decoding uses none. With a prefix, a
+        full-attention KV cache must hold all P + S + T positions: a
+        ``cache_capacity`` below that raises rather than letting the
+        prefix's positions be overwritten. A text-only call keeps the JAX
+        engine's contract, where a position past the capacity writes the
+        last slot.
         """
         B, S = prompts.shape
         use_scan = self.use_scan if use_scan is None else use_scan
@@ -113,14 +130,21 @@ class DecodeEngine:
                              f"shape {budgets.shape}")
         total = budgets + max_extra_tokens
         T = int(total.max())
+        P = 0 if prefix_embeds is None else int(prefix_embeds.shape[1])
+        cfg = self.cfg
+        if (P and (cfg.has_attn_layers or cfg.has_shared_attn)
+                and cfg.sliding_window is None and P + S + T > self.capacity):
+            raise ValueError(
+                f"prefix {P} + prompt {S} + {T} generated tokens exceed "
+                f"cache_capacity {self.capacity}")
         if self.tracer is not None:
             with self.tracer.span("engine.prefill", cat="engine",
                                   args={"B": B, "S": S}):
-                logits, cache = self.prefill(prompts)
+                logits, cache = self.prefill(prompts, prefix_embeds)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
         else:
-            logits, cache = self.prefill(prompts)
+            logits, cache = self.prefill(prompts, prefix_embeds)
         generator = self._generator
         if generator is not None:
             generator.manual_seed(seed)

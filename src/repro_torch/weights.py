@@ -10,9 +10,12 @@ MoE (a block's ``moe`` subtree: ``router``, the stacked ``w_gate`` /
 (``blocks`` plus ``shared_attn``) trees alike, with every norm's leaves
 as they come (RMS norm's ``scale``, LayerNorm's ``scale`` and ``bias``,
 OLMo's empty norms) and a GELU MLP's ``up`` and ``down`` without a
-``gate``. Each leaf keeps its dtype, so the f32 leaves of a bf16 model
+``gate``; the VLM and audio stubs' trees are the dense tree (their
+frontends supply embeddings, not parameters). Each leaf keeps its dtype, so the f32 leaves of a bf16 model
 (RWKV6's ``w0`` and ``u``, Mamba2's ``A_log``, ``D`` and ``dt_bias``) stay
-f32. It takes numpy only and imports nothing of JAX.
+f32. ``train_state_from_jax`` carries a ``repro.train.TrainState``
+(parameters, AdamW moments ``m`` and ``v``, step) across the same way. It
+takes numpy only and imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -36,3 +39,17 @@ def from_jax_params(tree, device=DEFAULT_DEVICE):
     if isinstance(tree, dict):
         return {k: from_jax_params(v, dev) for k, v in tree.items()}
     return _to_tensor(tree, dev)
+
+
+def train_state_from_jax(state, device=DEFAULT_DEVICE):
+    """A ``repro.train.TrainState`` after ``jax.device_get`` (its params,
+    ``opt.m`` and ``opt.v`` nested dicts of numpy arrays, ``opt.step`` a
+    0-d int32) -> the port's ``TrainState`` on ``device``."""
+    from .train import OptState, TrainState
+    dev = resolve_device(device)
+    opt = state.opt
+    return TrainState(
+        params=from_jax_params(state.params, dev),
+        opt=OptState(m=from_jax_params(opt.m, dev),
+                     v=from_jax_params(opt.v, dev),
+                     step=_to_tensor(np.asarray(opt.step, np.int32), dev)))

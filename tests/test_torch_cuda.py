@@ -34,7 +34,12 @@ MoE: the FFN with per-expert ``rows`` at deepseek-moe-16b's and
 granite-moe-3b-a800m's expert buffers (E 64 and 40, a third of the
 experts empty) on its live rows, equal to the call without ``rows``
 there, its split counters left at zero; the MoE decode step with no host
-sync; reduced deepseek and granite through the replayed chunk.
+sync; reduced deepseek and granite through the replayed chunk. The VLM
+and audio shapes: flash over llava-next-mistral-7b's 1152-row prefix
+plus a prompt (S 1189, G 4) and slot decode at musicgen-medium's 24
+heads of 64 (G 1). Training: each kernel refuses an input that requires
+grad, and two reduced olmo-1b train steps on the card equal the CPU's at
+1e-4 (TF32 off).
 """
 import dataclasses
 
@@ -1435,3 +1440,95 @@ def test_evaluate_cells_lanes_match_plain(cuda_device, case):
                 np.testing.assert_allclose(a, h, rtol=1e-9, err_msg=f.name)
         else:
             assert a == b == h, f.name
+
+
+# ------------------------------------------- VLM / audio shapes, training
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_at_the_llava_prefix_matches_plain(cuda_device, dtype):
+    """llava-next-mistral-7b's prefill: 1152 image rows plus a 37-token
+    prompt (S 1189), G 4, hd 128."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    B, S, H, G, hd = 1, 1189, 8, 4, 128
+    q = torch.randn(B, S, H, G, hd, generator=g, device=cuda_device) \
+        .to(dtype).permute(0, 2, 3, 1, 4)
+    k = torch.randn(B, S, H, hd, generator=g, device=cuda_device) \
+        .to(dtype).permute(0, 2, 1, 3)
+    v = torch.randn(B, S, H, hd, generator=g, device=cuda_device) \
+        .to(dtype).permute(0, 2, 1, 3)
+    got = flash_attention(q, k, v)
+    want = flash_attention_plain(q, k, v)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_at_musicgen_heads_matches_plain(cuda_device, dtype):
+    """musicgen-medium's decode: plain multi-head attention (G 1) at hd
+    64, 24 heads, over a 64-row prefix plus prompt and decode."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    B, C, H, G, hd = 2, 512, 24, 1, 64
+    q = torch.randn(B, H, G, hd, generator=g, device=cuda_device).to(dtype)
+    cache = torch.randn(2, B, C, H, hd, generator=g,
+                        device=cuda_device).to(dtype)
+    k, v = cache[0].permute(0, 2, 1, 3), cache[1].permute(0, 2, 1, 3)
+    valid = torch.arange(C, device=cuda_device)[None] \
+        <= torch.tensor([[101], [300]], device=cuda_device)
+    got = decode_attention(q, k, v, valid)
+    want = decode_attention_plain(q, k, v, valid)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_inputs_that_require_grad(cuda_device):
+    """A ctypes launch has no backward: on the card each kernel raises
+    rather than return an output without a grad_fn, and runs under
+    no_grad."""
+    x = torch.randn(1, 4, 64, device=cuda_device, requires_grad=True)
+    w = torch.randn(1, 64, 128, device=cuda_device)
+    wd = torch.randn(1, 128, 64, device=cuda_device)
+    with pytest.raises(RuntimeError, match="fused_ffn.*forward-only"):
+        fused_ffn(x, w, w, wd)
+    with torch.no_grad():
+        assert fused_ffn(x, w, w, wd).grad_fn is None
+    q = torch.randn(1, 2, 1, 8, 64, device=cuda_device, requires_grad=True)
+    kv = torch.randn(1, 2, 8, 64, device=cuda_device)
+    with pytest.raises(RuntimeError, match="flash_attention.*forward-only"):
+        flash_attention(q, kv, kv)
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """Two reduced olmo-1b train steps on the card (the reference math,
+    f32, no TF32) against the same steps on the CPU at 1e-4."""
+    import numpy as np
+
+    from repro_torch import train
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models import reduced
+    from repro_torch.train.tree import tree_leaves, tree_unflatten
+
+    cfg = reduced(get_config("olmo-1b"), d_model=128)
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                      batch_size=4))
+    step = train.make_train_step(cfg, train.AdamWConfig(
+        lr=3e-3, warmup_steps=5, total_steps=20))
+    host = train.init_train_state(cfg, seed=0, device="cpu")
+    card = tree_unflatten(host, [t.to(cuda_device)
+                                 for t in tree_leaves(host)])
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for i in range(2):
+            batch = {"tokens": data.batch(i)["tokens"]}
+            host, mh = step(host, batch)
+            card, mc = step(card, batch)
+            np.testing.assert_allclose(float(mc["loss"]), float(mh["loss"]),
+                                       rtol=1e-4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, b in zip(tree_leaves(card), tree_leaves(host)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and the default device
+``chip_smoke.py`` imports JAX, the JAX package or ``msgpack`` (the
+checkpoint codec is the port's own), and the default device
 refuses to fall back to the CPU."""
 import ast
 import pathlib
@@ -14,7 +15,7 @@ cap_xdist_threads()   # one torch thread a worker under pytest-xdist
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 
 
 def _imports(path: pathlib.Path):

@@ -45,9 +45,9 @@ def serve(arch: str, dev) -> dict:
     prefill_s = [0.0]
     prefill = engine.prefill
 
-    def timed_prefill(prompts):
+    def timed_prefill(*args, **kwargs):
         t0 = time.perf_counter()
-        out = prefill(prompts)
+        out = prefill(*args, **kwargs)
         torch.cuda.synchronize()
         prefill_s[0] += time.perf_counter() - t0
         return out
