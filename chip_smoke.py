@@ -260,18 +260,39 @@ Phases, in order; any failure ends the run with a non-zero exit:
    relative; bitwise or not, by default and under PyTorch's
    deterministic algorithms); a kernel given a CUDA input that requires
    grad raises.
+21. distribution (after the replay engine, on its qwen3-8b weights):
+   qwen3-8b's steps at the (16, 16) pod mesh's per-device share of
+   launch/shapes.py's global shapes, at full width in bf16 through
+   launch/steps.py on the kernels: prefill_32k (B 2, S 32,768; held
+   against the reference path at the prompt's first 4,096 tokens, top-1
+   equal; at full S finite only: plain attention there needs a 137 GB
+   score tensor), decode_32k (B 8 over 32,768 slots filled from a seeded
+   generator, 16 greedy steps) and long_500k (B 1, a ring of the 8,192
+   window; 16 steps), each decode's first step held against the
+   reference path on the same cache (top-1 equal, max |delta| printed).
+   Each step prints its median ms, launches, its roofline's compute_s,
+   memory_s and bottleneck (roofline/analysis.py on the reference math
+   at the same shapes, counted on the host), roofline_share (the larger
+   term over the measured time), mfu (model FLOPs over the time at
+   989.4 TFLOP/s) and the card. Then the sharded path on a 1x1 NCCL
+   mesh: qwen3-0.6b in f32 at 4 of 28 layers, its parameters, tokens
+   and cache DTensors; the train step's loss and gradient norm and a
+   decode step's logits within 1e-5 of the unsharded reference path,
+   the state's placements kept, no kernel launched.
 
 Each top-level phase prints its seconds as it ends (phase_seconds), and
 a summary of them precedes the des_lanes line. ``--only kernels,
-vlm_audio,train`` (any subset) runs just those after the build: a
-development run that prints neither the summary below nor the ok line.
+vlm_audio,train,distribution`` (any subset) runs just those after the
+build: a development run that prints neither the summary below nor the
+ok line.
 
 The des_lanes line, the card's name and power limit, then, as the line
 before the last, the kernels' JSON summary (with each kernel's
 launches on every serve path that ran it, the int8 serve, the int8 paged
 drain, the hooks serve, every continuous serve, the recurrent drains, the
-window check, the replay engine lane, the prefix generates and the
-VLM / audio serves among them); the last line is
+window check, the replay engine lane, the prefix generates, the
+VLM / audio serves and qwen3-8b's three distribution steps among them);
+the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 non-zero and prints no result.
 """
@@ -396,6 +417,27 @@ ENGINE_QUERIES = 32           # the engine lane on qwen3-8b
 ENGINE_LAM = 0.5              # its trace's arrival rate (1/s)
 ENGINE_L_MAX = 128
 ENGINE_PROMPT = 8
+# the distribution phase: qwen3-8b's steps at the pod mesh's (16 x 16)
+# per-device share of launch/shapes.py's global shapes (the batch over the
+# 16-wide data axis; long_500k's batch of 1 is replicated)
+DIST_BATCH = {"prefill_32k": 2, "decode_32k": 8, "long_500k": 1}
+DIST_HOLD_S = 4096        # the prefill's kernel-vs-reference hold (plain
+                          # attention at S 32,768 needs a 137 GB score tensor)
+DIST_STEPS = 16           # serve steps after the filled cache
+DIST_S = 32768            # prefill_32k / decode_32k's sequence
+DIST_WINDOW = 8192        # long_500k's ring (adapt_config's window)
+DIST_FLASH_ROWS = 256     # query rows the S 32,768 flash case is held on
+DIST_KERNEL_REPS = 5      # timed calls of the kernel cases at those shapes
+DIST_PREFILL_RUNS = 2     # timed full prefills
+DIST_SHARDED_LAYERS = 4   # qwen3-0.6b's 28 layers, cut for the 1x1 mesh
+# the steps' logits, kernel path against reference path, bf16 at 36
+# layers: max |delta| read 0.047 (prefill, 4,096 tokens), 0.19
+# (decode_32k) and 0.16 (long_500k) on the H100; the limit is 2.5x the
+# largest. A kernel at fault is caught by its kernel case at these shapes
+DIST_HOLD_TOL = 0.5
+DIST_SHARDED_TOL = 1e-5   # sharded against unsharded reference path, f32
+DIST_STATE_TOL = 5e-5     # the sharded step's m and v, of each leaf's norm
+                          # (tests/test_torch_sharding.py's bar)
 
 
 class SmokeFailure(RuntimeError):
@@ -495,7 +537,7 @@ def kernel_cases(dev, flush):
 
     def record(name, case, dtype, got, want, tol, reason, fn, plain, lib,
                nbytes, flops, main, library="one call", state=None,
-               fields=None, one_call=True):
+               fields=None, one_call=True, reps=25):
         """``tol``: one float (atol = rtol), a per-slot tensor of atols, or
         an (atol, rtol) pair. ``state``: the scans' (got, want) final
         states, held at STATE_TOL. ``fields``: added to the row (the
@@ -524,9 +566,11 @@ def kernel_cases(dev, flush):
         bms, by = bound(nbytes, flops, dtype)
         row = {"name": name, "case": case, "dtype": str(dtype)[6:],
                "max_abs_err": err, "tol": tol, "tol_reason": reason,
-               **per_slot, **extra, "ok": ok, "ms": median_ms(fn, flush),
-               "plain_ms": median_ms(plain, flush),
-               "library_ms": None if lib is None else median_ms(lib, flush),
+               **per_slot, **extra, "ok": ok,
+               "ms": median_ms(fn, flush, reps),
+               "plain_ms": median_ms(plain, flush, reps),
+               "library_ms": None if lib is None else median_ms(lib, flush,
+                                                                reps),
                "library": None if lib is None else library,
                "library_one_call": lib is not None and one_call,
                "bound_ms": bms, "bound_by": by, **(fields or {})}
@@ -611,6 +655,65 @@ def kernel_cases(dev, flush):
     flash_case(torch.bfloat16, LL_P + PREFIX_PROMPT, LL_H, LL_G, HD,
                main=False, B=2)
 
+    # the distribution phase's prefill_32k on one card: qwen3-8b at B 2 x
+    # S 32,768, G 4. The plain version over every pair would need a 137 GB
+    # score tensor, so the kernel's output is held on DIST_FLASH_ROWS query
+    # rows (the first 64, the last 64, the rest spread between) against
+    # the plain arithmetic on those rows over all their keys
+    def flash_rows_plain(q, k, v, rows):
+        """``flash_attention_plain``'s arithmetic (f32 scores and sums,
+        weights rounded to the input dtype) on the causal query rows
+        ``rows`` of q [B, H, G, S, hd]."""
+        hd = q.shape[-1]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", q[:, :, :, rows].float(),
+                         k.float()) * (1.0 / hd ** 0.5)
+        keep = torch.arange(k.shape[2], device=dev)[None] <= rows[:, None]
+        s = torch.where(keep, s, torch.full_like(s, flash_attention.NEG_INF))
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        l = p.sum(dim=-1, keepdim=True)
+        out = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(),
+                           v.float())
+        return (out / l.clamp_min(1e-30)).to(q.dtype)
+
+    def flash_rows_case(dtype, B, S, H, G, HD, n_rows):
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        qm = randn(B, S, H * G, HD, dtype=dtype)
+        km = randn(B, S, H, HD, dtype=dtype)
+        vm = randn(B, S, H, HD, dtype=dtype)
+        q = qm.reshape(B, S, H, G, HD).permute(0, 2, 3, 1, 4)
+        k, v = km.permute(0, 2, 1, 3), vm.permute(0, 2, 1, 3)
+        rows = torch.cat([torch.arange(64),
+                          torch.linspace(64, S - 65, n_rows - 128).long(),
+                          torch.arange(S - 64, S)]).unique().to(dev)
+        fa = flash_attention.flash_attention
+        got = fa(q, k, v)[:, :, :, rows]
+        want = flash_rows_plain(q, k, v, rows)
+        ql = qm.transpose(1, 2)
+        kl = k.repeat_interleave(G, dim=1)
+        vl = v.repeat_interleave(G, dim=1)
+
+        def library():
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                return F.scaled_dot_product_attention(ql, kl, vl,
+                                                      is_causal=True)
+        el = qm.element_size()
+        nbytes = B * (2 * H * G + 2 * H) * S * HD * el
+        flops = B * H * G * (S * (S + 1) // 2) * 4 * HD
+        record("flash_attention",
+               f"B={B} S={S} H={H} G={G} hd={HD} (held on {len(rows)} "
+               f"query rows incl. the last; plain_ms is those rows')",
+               dtype, got, want, TOL[dtype], TOL_REASON[dtype],
+               lambda: fa(q, k, v), lambda: flash_rows_plain(q, k, v, rows),
+               library, nbytes, flops, main=False,
+               library="scaled_dot_product_attention (flash backend, "
+                       "is_causal, kv repeated to the query heads)",
+               fields={**flash_fields(B, S, H, G, HD, dtype),
+                       "plain_rows": len(rows)}, reps=DIST_KERNEL_REPS)
+        del qm, km, vm, q, k, v, kl, vl, got, want
+
+    flash_rows_case(torch.bfloat16, DIST_BATCH["prefill_32k"], DIST_S,
+                    Q8_H, Q8_G, HD, DIST_FLASH_ROWS)
+
     # -- 2. slot decode attention over the stacked cache's [B,C,nkv,hd]:
     # batch 1 (DecodeEngine) and the continuous engine's 8 slot rows at
     # ragged positions, each with its own valid row; then masks that
@@ -627,7 +730,7 @@ def kernel_cases(dev, flush):
                 else "none: one split writes the output"}
 
     def decode_case(dtype, B, n_valid, H, G, HD, main, mask=None,
-                    what=None, dominant=None, C=C):
+                    what=None, dominant=None, C=C, reps=25):
         """``mask``: a [B, C] valid mask in place of the prefixes
         ``n_valid`` (then ``what`` names it); ``dominant``: a slot whose
         key is set to 4 q of head 0, so its score dominates."""
@@ -666,7 +769,7 @@ def kernel_cases(dev, flush):
                lambda: F.scaled_dot_product_attention(ql, kl, vl,
                                                       attn_mask=lmask),
                nbytes, flops, main=main,
-               fields=split_fields(B, H, C, HD, dtype))
+               fields=split_fields(B, H, C, HD, dtype), reps=reps)
 
     for dtype, B, n_valid in ((torch.bfloat16, 1, (17,)),
                               (torch.bfloat16, 1, (100,)),
@@ -720,6 +823,34 @@ def kernel_cases(dev, flush):
                     mask=torch.arange(C, device=dev)[None] < 2000,
                     what=f"valid=[2000] dominant slot {last} (last split)",
                     dominant=last)
+
+    # the distribution phase's decodes on one card (qwen3-8b, G 4):
+    # decode_32k's 8 rows over a 32,768-slot cache with 32,753 valid (its
+    # first serve step's), then with one dominant slot in the last split's
+    # last tile; long_500k's ring of 8,192, full, and wrapped past slot 0
+    bf16, n32 = torch.bfloat16, DIST_S - DIST_STEPS + 1
+    plan = decode_attention.split_plan(DIST_BATCH["decode_32k"], Q8_H,
+                                       DIST_S, HD, bf16, _cuda.sm_count(0))
+    last = min(plan.tiles(plan.n_split - 1)[-1] * plan.tile + 5, n32 - 1)
+    valid32 = (torch.arange(DIST_S, device=dev)[None] < n32).expand(
+        DIST_BATCH["decode_32k"], DIST_S).contiguous()
+    for dominant in (None, last):
+        decode_case(bf16, DIST_BATCH["decode_32k"], None, Q8_H, Q8_G, HD,
+                    False, mask=valid32, C=DIST_S, dominant=dominant,
+                    what=f"valid=[{n32}] x {DIST_BATCH['decode_32k']}"
+                         + ("" if dominant is None else
+                            f" dominant slot {dominant} (last split)"),
+                    reps=DIST_KERNEL_REPS)
+    ring = torch.ones(1, DIST_WINDOW, dtype=torch.bool, device=dev)
+    decode_case(bf16, 1, None, Q8_H, Q8_G, HD, False, mask=ring,
+                what=f"valid=all {DIST_WINDOW} (a wrapped ring)",
+                C=DIST_WINDOW, reps=DIST_KERNEL_REPS)
+    ring = ring.clone()
+    ring[0, 200:DIST_WINDOW - 300] = False
+    decode_case(bf16, 1, None, Q8_H, Q8_G, HD, False, mask=ring,
+                what=f"valid={DIST_WINDOW - 300}..{DIST_WINDOW - 1}, 0..199 "
+                     "(a ring wrapping past slot 0)", C=DIST_WINDOW,
+                reps=DIST_KERNEL_REPS)
 
     # -- 3. paged decode attention over one layer of the engine's pool:
     # 8 slots of a 2048-token table (bs 16, n_bt 128) over P = 1024 blocks
@@ -815,7 +946,7 @@ def kernel_cases(dev, flush):
             out.update(bt=plan.bt, n_split=plan.n_split)
         return out
 
-    def ffn_case(dtype, T, D, DFF, main):
+    def ffn_case(dtype, T, D, DFF, main, reps=25):
         x = randn(1, T, D, dtype=dtype)
         wg = randn(1, D, DFF, dtype=dtype, scale=D ** -0.5)
         wu = randn(1, D, DFF, dtype=dtype, scale=D ** -0.5)
@@ -838,7 +969,7 @@ def kernel_cases(dev, flush):
                nbytes, flops, main=main, one_call=False,
                library="chain of 5 calls: x @ Wg, x @ Wu (torch.matmul), "
                        "silu, the product, @ Wd",
-               fields=ffn_fields(T, D, DFF, dtype))
+               fields=ffn_fields(T, D, DFF, dtype), reps=reps)
 
     drain_T = len(prompt_lens) * max(prompt_lens)
     print(json.dumps({"phase": "drain_admission_T", "prompts": prompt_lens,
@@ -863,6 +994,10 @@ def kernel_cases(dev, flush):
     for T in (1, 2, LL_P + PREFIX_PROMPT, 2 * (LL_P + PREFIX_PROMPT)):
         ffn_case(torch.bfloat16, T, LL_D, LL_DFF, main=False)
     ffn_case(torch.float32, 1, LL_D, LL_DFF, main=False)
+    # the distribution phase's prefill_32k on one card: qwen3-8b's FFN
+    # over B 2 x S 32,768 rows (its h scratch 1.6 GB)
+    ffn_case(torch.bfloat16, DIST_BATCH["prefill_32k"] * DIST_S, Q8_D,
+             Q8_DFF, main=False, reps=DIST_KERNEL_REPS)
 
     # -- 4b. the MoE's expert buffers [E, C, d] with per-expert live rows
     # (rows[e]): dropless decode (C = T, batch 1 and the continuous
@@ -3672,6 +3807,309 @@ def vlm_audio_phases(dev, by_path: dict, free) -> dict:
     return seconds
 
 
+def dist_roofline(cfg, shape) -> dict:
+    """``roofline.analysis`` for one card's share of a step, counted on
+    the reference math at the same shapes (meta stand-ins on the host,
+    nothing allocated)."""
+    from repro_torch.launch import shapes as lshapes
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.roofline import analysis
+    params, _ = lshapes.params_specs_for(cfg, None)
+    spec = lshapes.input_specs(cfg, shape, None)
+    if shape.kind == "prefill":
+        res = analysis.count_step(lsteps.make_prefill_step(cfg, True),
+                                  (params, spec["tokens"]))
+    else:
+        res = analysis.count_step(lsteps.make_serve_step(cfg, True),
+                                  (params, spec["token"], spec["cache"]),
+                                  spec["cache"])
+    return analysis.analyze(res["cost"], res["collectives"], cfg, shape,
+                            1).as_dict()
+
+
+def _top1_hold(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Kernel-path logits against the reference path's: each row's top-1
+    token, and max |delta| (bf16 at full depth, held at DIST_HOLD_TOL)
+    beside the largest |logit|."""
+    got, want = got.float().reshape(got.shape[0], -1), \
+        want.float().reshape(want.shape[0], -1)
+    return {"top1_equal": bool(torch.equal(got.argmax(-1), want.argmax(-1))),
+            "rows": got.shape[0],
+            "max_abs_delta": float((got - want).abs().max()),
+            "max_abs_logit": float(want.abs().max()),
+            "tol": DIST_HOLD_TOL,
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def _dist_prefill(dev, cfg, params, shape) -> dict:
+    """One card's share of prefill_32k through launch/steps.py on the
+    kernels: the hold at the prompt's first DIST_HOLD_S tokens (kernel
+    path against the reference path), then DIST_PREFILL_RUNS timed runs
+    at full S (finite only), launches counted over the last."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps as lsteps
+    g = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (shape.batch, shape.seq),
+                         generator=g).to(dev)
+    step, ref = lsteps.make_prefill_step(cfg), \
+        lsteps.make_prefill_step(cfg, force_ref=True)
+    with torch.no_grad():
+        got, cache = step(params, toks[:, :DIST_HOLD_S])
+        del cache
+        want, cache = ref(params, toks[:, :DIST_HOLD_S])
+        del cache
+        hold = _top1_hold(got, want)
+        times = []
+        for _ in range(DIST_PREFILL_RUNS):
+            gc.collect()
+            torch.cuda.empty_cache()
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = step(params, toks)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            launches = dict(LAUNCHES)
+            finite = bool(torch.isfinite(logits).all())
+            check(finite, "prefill_32k: non-finite logits at full S")
+            check(int(cache["layers"].length) == shape.seq,
+                  "prefill_32k: cache length")
+            del logits, cache
+    return {"ms": statistics.median(times) * 1e3,
+            "ms_runs": [t * 1e3 for t in times], "launches": launches,
+            "hold": {**hold, "tokens": DIST_HOLD_S}, "finite_full_s": finite}
+
+
+def _dist_decode(dev, cfg, params, shape) -> dict:
+    """One card's share of decode_32k / long_500k: a cache of shape.seq
+    positions (a ring of the window under long_500k) filled from a seeded
+    generator, its length DIST_STEPS short of shape.seq, then DIST_STEPS
+    greedy serve steps through launch/steps.py on the kernels. The first
+    step's logits are held against the reference path's on the same
+    cache (the reference step runs first; the position is rewound, and
+    the kernel step rewrites the same slot in every layer)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.models import init_decode_cache
+    cache = init_decode_cache(cfg, shape.batch, shape.seq, dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    kv = cache["layers"]
+    for t in (kv.k, kv.v):
+        for layer in range(t.shape[0]):
+            t[layer].normal_(generator=g)
+    start = shape.seq - DIST_STEPS
+    kv.length.fill_(start)
+    tok = torch.randint(0, cfg.vocab_size, (shape.batch, 1),
+                        generator=torch.Generator().manual_seed(2)) \
+        .to(dev, torch.int32)
+    step, ref = lsteps.make_serve_step(cfg), \
+        lsteps.make_serve_step(cfg, force_ref=True)
+    with torch.no_grad():
+        want, cache = ref(params, tok, cache)
+        cache["layers"].length.fill_(start)
+        reset_launches()
+        times, first = [], None
+        for _ in range(DIST_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = step(params, tok, cache)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if first is None:
+                first = logits
+            tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        launches = dict(LAUNCHES)
+        check(int(cache["layers"].length) == shape.seq,
+              f"{shape.name}: cache length after the steps")
+        check(bool(torch.isfinite(logits).all()),
+              f"{shape.name}: non-finite logits")
+    hold = _top1_hold(first, want)
+    del cache, kv
+    return {"ms": statistics.median(times) * 1e3,
+            "ms_min": min(times) * 1e3, "launches": launches,
+            "hold": hold, "capacity": shape.seq if cfg.sliding_window is None
+            else min(shape.seq, cfg.sliding_window)}
+
+
+def train_state_delta(got, want, p0, lr: float, opt) -> dict:
+    """A sharded train step's new state against the unsharded one (here
+    and on the 2x2 gloo mesh of tests/test_torch_sharding.py): m and v,
+    max |d| over each leaf's norm; the parameters, max |d| over 2 lr (a
+    gradient element near 0 flips the sign of its first AdamW step on a
+    rounding); and the sharded parameters against the first AdamW step
+    from ``p0`` recomputed on the sharded m and v, max |d| over 1e-2 lr +
+    1e-6 of each leaf's max |p0|."""
+    from repro_torch.train.tree import tree_leaves
+
+    def full(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+    out = {"m": 0.0, "v": 0.0, "p_2lr": 0.0, "p_own": 0.0}
+    for key in ("m", "v"):
+        for a, b in zip(tree_leaves(getattr(got.opt, key)),
+                        tree_leaves(getattr(want.opt, key))):
+            d = float((full(a) - b).abs().max())
+            out[key] = max(out[key], d / max(float(b.norm()), 1e-30))
+    one = torch.ones((), device=tree_leaves(p0)[0].device)
+    b1c, b2c = 1.0 - opt.beta1 ** one, 1.0 - opt.beta2 ** one
+    for a, b, p, m, v in zip(*(tree_leaves(t) for t in (
+            got.params, want.params, p0, got.opt.m, got.opt.v))):
+        a, m, v = full(a).float(), full(m), full(v)
+        out["p_2lr"] = max(out["p_2lr"], float(
+            (a - b.float()).abs().max()) / (2 * lr))
+        delta = (m / b1c) / (torch.sqrt(v / b2c) + opt.eps)
+        if p.dim() >= 2:
+            delta = delta + opt.weight_decay * p.float()
+        own = (p.float() - lr * delta).to(p.dtype).float()
+        out["p_own"] = max(out["p_own"], float((a - own).abs().max())
+                           / (1e-2 * lr + 1e-6 * float(
+                               p.float().abs().max())))
+    return out
+
+
+def sharded_check(dev) -> dict:
+    """The sharded path on a 1x1 NCCL mesh: qwen3-0.6b at full width in
+    f32 at DIST_SHARDED_LAYERS of its 28 layers, its parameters, tokens
+    and decode cache DTensors. The sharded train step's loss, gradient
+    norm and new state (``train_state_delta``) and one sharded decode
+    step's logits against the same steps unsharded, on the reference path
+    (the decode on the initial parameters: after an AdamW step a gradient
+    element near 0 moves its parameter by up to 2 lr on a rounding); the
+    new state in the old state's placements; no kernel launched (no
+    kernel is sharded; a wrapper handed a DTensor raises)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import init_decode_cache, init_params
+    from repro_torch.sharding import partition as part
+    from repro_torch.sharding.context import use_mesh
+    from repro_torch.train import AdamWConfig, TrainState, init_opt_state
+    from repro_torch.train.tree import tree_leaves
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), dtype="float32",
+                              n_layers=DIST_SHARDED_LAYERS)
+    params = init_params(cfg, seed=0, device=dev)
+    B = 2
+    toks = torch.randint(0, cfg.vocab_size, (B, 65),
+                         generator=torch.Generator().manual_seed(3)).to(dev)
+    tok = toks[:, :1].to(torch.int32)
+    train = lsteps.make_train_step_fn(cfg)
+    serve = lsteps.make_serve_step(cfg, force_ref=True)
+    st, m = train(TrainState(params, init_opt_state(params)),
+                  {"tokens": toks})
+    with torch.no_grad():
+        want, _ = serve(params, tok, init_decode_cache(cfg, B, 128, dev))
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_debug_mesh(1, 1)
+        reset_launches()
+        with use_mesh(mesh):
+            dp = part.distribute(params, part.param_placements(
+                cfg, params, mesh), mesh)
+            tok_pl = part.placements(part.token_spec(mesh, B), mesh)
+            state = TrainState(dp, init_opt_state(dp))
+            dst, dm = train(state, {"tokens": part.distribute(toks, tok_pl,
+                                                              mesh)})
+            kept = all(a.placements == b.placements for a, b in
+                       zip(tree_leaves(dst), tree_leaves(state))
+                       if hasattr(b, "placements"))
+            cache = init_decode_cache(cfg, B, 128, dev)
+            dc = part.distribute(cache, part.cache_placements(
+                cfg, cache, mesh, B), mesh)
+            with torch.no_grad():
+                got, _ = serve(dp, part.distribute(tok, tok_pl, mesh), dc)
+            got = got.full_tensor()
+            state_d = train_state_delta(dst, st, params, float(m["lr"]),
+                                        AdamWConfig())
+            loss = float(dm["loss"].full_tensor())
+            gnorm = float(dm["grad_norm"].full_tensor())
+            n_dtensor = sum(hasattr(t, "placements") for t in
+                            dp["blocks"]["attn"].values())
+        launches = sum(LAUNCHES.values())
+    finally:
+        dist.destroy_process_group()
+    out = {"mesh": "1x1 nccl", "layers": DIST_SHARDED_LAYERS,
+           "loss": loss, "loss_unsharded": float(m["loss"]),
+           "loss_delta": abs(loss - float(m["loss"])),
+           "grad_norm_rel_delta": abs(gnorm - float(m["grad_norm"]))
+           / float(m["grad_norm"]), "placements_kept": kept,
+           "logits_max_abs_delta": float((got - want).abs().max()),
+           "dtensor_attn_leaves": n_dtensor, "kernel_launches": launches,
+           "state": state_d, "tol": DIST_SHARDED_TOL}
+    print(json.dumps({"phase": "distribution_sharded", **out}))
+    check(out["loss_delta"] <= DIST_SHARDED_TOL,
+          f"sharded train loss off by {out['loss_delta']}")
+    check(out["logits_max_abs_delta"] <= DIST_SHARDED_TOL,
+          f"sharded decode logits off by {out['logits_max_abs_delta']}")
+    check(out["grad_norm_rel_delta"] <= DIST_SHARDED_TOL,
+          f"sharded gradient norm off by {out['grad_norm_rel_delta']}")
+    check(kept, "the sharded train step moved the state's placements")
+    check(state_d["m"] <= DIST_STATE_TOL and state_d["v"] <= DIST_STATE_TOL,
+          f"sharded train step's moments off: {state_d}")
+    check(state_d["p_2lr"] <= 1.0 + 1e-6 and state_d["p_own"] <= 1.0,
+          f"sharded train step's parameters off: {state_d}")
+    check(launches == 0, f"the sharded path launched {launches} kernels")
+    check(n_dtensor > 0, "the sharded path held no DTensor")
+    return out
+
+
+def distribution_phase(dev, cfg8, params8, smi: str) -> dict:
+    """qwen3-8b's steps at the pod mesh's per-device share (DIST_BATCH) at
+    full width in bf16 through launch/steps.py on the kernels, each beside
+    its roofline (counted on the reference math at the same shapes), then
+    the sharded path on a 1x1 NCCL mesh (``sharded_check``). Returns the
+    launches of each step for the kernels' summary."""
+    from repro_torch.launch import shapes as lshapes
+    from repro_torch.roofline import analysis
+    launches = {}
+    check(lshapes.SHAPES["decode_32k"].seq == DIST_S
+          and lshapes.LONG_CONTEXT_WINDOW == DIST_WINDOW,
+          "the kernel cases' distribution shapes are not the steps'")
+    for name, batch in DIST_BATCH.items():
+        t = time.perf_counter()
+        shape = dataclasses.replace(lshapes.SHAPES[name], batch=batch)
+        cfg = lshapes.adapt_config(cfg8, shape)
+        roof = dist_roofline(cfg, shape)
+        t_roof = time.perf_counter() - t
+        run = (_dist_prefill if shape.kind == "prefill" else
+               _dist_decode)(dev, cfg, params8, shape)
+        gc.collect()
+        torch.cuda.empty_cache()
+        s = run["ms"] / 1e3
+        terms = {k: roof[k] for k in ("compute_s", "memory_s",
+                                      "collective_s")}
+        row = {"phase": "distribution", "step": name, "batch": batch,
+               "seq": shape.seq, "window": cfg.sliding_window,
+               "ms": run["ms"], "launches": run["launches"],
+               "compute_s": roof["compute_s"], "memory_s": roof["memory_s"],
+               "bottleneck": roof["bottleneck"],
+               "flops_per_device": roof["flops_per_device"],
+               "bytes_per_device": roof["bytes_per_device"],
+               "roofline_share": max(terms.values()) / s,
+               "mfu": analysis.model_flops(cfg, shape)
+               / (s * analysis.PEAK_FLOPS_BF16),
+               "hold": run["hold"], "card": smi,
+               "roofline_count_s": t_roof,
+               "seconds": time.perf_counter() - t,
+               **{k: v for k, v in run.items()
+                  if k not in ("ms", "launches", "hold")}}
+        print(json.dumps(row))
+        check(run["hold"]["finite"], f"{name}: non-finite logits")
+        check(run["hold"]["top1_equal"],
+              f"{name}: kernel path's top-1 differs from the reference's")
+        check(run["hold"]["max_abs_delta"] <= DIST_HOLD_TOL,
+              f"{name}: kernel path's logits off the reference's by "
+              f"{run['hold']['max_abs_delta']}")
+        for kernel in ("fused_ffn", "flash_attention"
+                       if shape.kind == "prefill" else "decode_attention"):
+            check(run["launches"].get(kernel, 0) > 0,
+                  f"{name}: {kernel} not launched")
+        launches[f"qwen3-8b {name}"] = run["launches"]
+    sharded_check(dev)
+    return launches
+
+
 REPLACES = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:98"),
@@ -3689,7 +4127,7 @@ REPLACES = {
 }
 
 
-ONLY_GROUPS = ("kernels", "vlm_audio", "train")
+ONLY_GROUPS = ("kernels", "vlm_audio", "train", "distribution")
 
 
 def main(argv=None) -> int:
@@ -3760,6 +4198,13 @@ def main(argv=None) -> int:
         if "train" in only:
             with timed("train"):
                 train_phase(dev)
+        if "distribution" in only:
+            with timed("distribution"):
+                cfg8 = get_config("qwen3-8b")
+                params8 = init_params(cfg8, seed=0, device=dev)
+                by_path.update(distribution_phase(dev, cfg8, params8, smi))
+                del params8
+                free()
         print(json.dumps({"phase_seconds": seconds, "launches_by_path":
                           by_path,
                           "total_s": time.perf_counter() - t_start}))
@@ -3916,6 +4361,9 @@ def main(argv=None) -> int:
         calibration = calibration_phase(served_8b, occupancy)
         by_path["qwen3-8b replay engine"] = replay_engine_phase(
             dev, cfg8, params8, calibration)["launches"]
+        free()
+    with timed("distribution"):
+        by_path.update(distribution_phase(dev, cfg8, params8, smi))
         del params8
         free()
     with timed("sweeps"):

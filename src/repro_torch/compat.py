@@ -15,6 +15,7 @@ the host's cores.
 """
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
@@ -61,6 +62,21 @@ def cap_xdist_threads() -> None:
     """
     if os.environ.get("PYTEST_XDIST_WORKER"):
         torch.set_num_threads(1)
+
+
+@functools.lru_cache(maxsize=None)
+def _dtensor_class():
+    if not torch.distributed.is_available():
+        return None
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor (``torch.distributed.tensor``): a tensor
+    of the sharded path, laid out over a mesh."""
+    cls = _dtensor_class()
+    return cls is not None and isinstance(t, cls)
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -6,6 +6,7 @@ import functools
 
 import torch
 
+from ..compat import is_dtensor
 from . import _build
 
 #: dtype codes of the C entry points (csrc/common.cuh)
@@ -29,6 +30,19 @@ def refuse_grad(name: str, tensors) -> None:
                 f"are forward-only, as the JAX package's are; run the "
                 f"reference math (force_ref=True) to differentiate, or "
                 f"call under torch.no_grad()")
+
+
+def refuse_dtensor(name: str, tensors) -> None:
+    """Raise when an input is a DTensor. No kernel is sharded: the sharded
+    path runs the reference math (``force_ref=True``), as the JAX
+    package's mesh path runs jnp, and a DTensor on the CPU must not
+    quietly take the plain version. ``tensors``: the inputs (``None``
+    entries are skipped)."""
+    for t in tensors:
+        if is_dtensor(t):
+            raise TypeError(
+                f"{name}: got a DTensor; no kernel is sharded, so the "
+                f"sharded path runs the reference math (force_ref=True)")
 
 
 def check(name: str, tensors: dict) -> torch.device:

@@ -114,6 +114,7 @@ def decode_attention(q, k, v, valid) -> torch.Tensor:
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.
     """
+    _cuda.refuse_dtensor("decode_attention", (q, k, v, valid))
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, valid)
     return _launch(q, k, v, valid)
@@ -193,6 +194,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables,
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.
     """
+    _cuda.refuse_dtensor("paged_decode_attention",
+                         (q, k_pool, v_pool, block_tables, pos))
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                             pos)

@@ -154,6 +154,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     kernel or raises. The kernel's output is a ``[B, H, G, S, hd]`` view of
     a ``[B, S, H, G, hd]`` buffer (the model's layout).
     """
+    _cuda.refuse_dtensor("flash_attention", (q, k, v))
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     return _launch(q, k, v, causal, window)

@@ -168,6 +168,7 @@ def fused_ffn(x, wg, wu, wd, rows=None) -> torch.Tensor:
     """SwiGLU FFN batched over E; ``rows``: live rows of each expert. A
     CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises."""
+    _cuda.refuse_dtensor("fused_ffn", (x, wg, wu, wd, rows))
     if x.device.type == "cpu":
         return fused_ffn_plain(x, wg, wu, wd, rows)
     return _launch(x, wg, wu, wd, rows)

@@ -114,6 +114,7 @@ def rwkv6_scan(r, k, v, la, u):
     Returns ``(y, s_final)``. A CPU tensor takes the plain version; a CUDA
     tensor launches the kernel or raises.
     """
+    _cuda.refuse_dtensor("rwkv6_scan", (r, k, v, la, u))
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, la, u)
     return _launch(r, k, v, la, u)

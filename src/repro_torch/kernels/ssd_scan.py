@@ -105,6 +105,7 @@ def ssd_scan(x, dt, a, Bm, Cm):
     Returns ``(y, s_final)``. A CPU tensor takes the plain version; a CUDA
     tensor launches the kernel or raises.
     """
+    _cuda.refuse_dtensor("ssd_scan", (x, dt, a, Bm, Cm))
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, a, Bm, Cm)
     return _launch(x, dt, a, Bm, Cm)

@@ -37,9 +37,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..compat import is_dtensor
 from ..kernels import ops as kops
+from ..roofline.analysis import note_attention_output, note_attention_scores
 from .config import ModelConfig
-from .layers import _he, apply_rope, rope_freqs
+from .layers import (_he, apply_rope, merge_dims, on_local_heads,
+                     rope_freqs, split_dim)
 
 Tensor = torch.Tensor
 
@@ -157,7 +160,7 @@ def kv_fields(k: Tensor, v: Tensor, int8: bool) -> tuple:
 
 
 def init_attn(cfg: ModelConfig, gen: torch.Generator, lead: tuple) -> dict:
-    hd, nh, nkv, d = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_model
+    hd, nh, nkv, d = cfg.hd, cfg.n_heads, cfg.n_kv_eff, cfg.d_model
     p = {
         "wq": _he(gen, lead + (d, nh * hd), cfg.tdtype, fan_in=d),
         "wk": _he(gen, lead + (d, nkv * hd), cfg.tdtype, fan_in=d),
@@ -180,10 +183,10 @@ def _qk_rms(x: Tensor, scale: Tensor) -> Tensor:
 
 def _project_qkv(cfg: ModelConfig, p: dict, x: Tensor, positions: Tensor):
     B, S, _ = x.shape
-    hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    q = torch.matmul(x, p["wq"]).reshape(B, S, nh, hd)
-    k = torch.matmul(x, p["wk"]).reshape(B, S, nkv, hd)
-    v = torch.matmul(x, p["wv"]).reshape(B, S, nkv, hd)
+    hd, nh, nkv = cfg.hd, cfg.n_heads, cfg.n_kv_eff
+    q = split_dim(torch.matmul(x, p["wq"]), -1, (nh, hd))
+    k = split_dim(torch.matmul(x, p["wk"]), -1, (nkv, hd))
+    v = split_dim(torch.matmul(x, p["wv"]), -1, (nkv, hd))
     if cfg.qk_norm:
         q = _qk_rms(q, p["q_norm"])
         k = _qk_rms(k, p["k_norm"])
@@ -192,17 +195,40 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: Tensor, positions: Tensor):
 
 
 def _sdpa(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor,
-          mask: Tensor) -> Tensor:
+          mask: Tensor, pairs: Optional[int] = None) -> Tensor:
     """Reference attention. q [B,S,nh,hd], k/v [B,T,nkv,hd],
-    mask [B or 1, S, T] bool."""
+    mask [B or 1, S, T] bool; ``pairs``, where the caller knows it, the
+    (query, key) pairs the mask keeps per batch row (for the roofline's
+    count). On DTensors (a mesh installed) each rank attends its own
+    rows and KV heads with their query groups
+    (``on_local_heads``), or, where the model axis splits the head
+    dimension instead, the einsums run on DTensors (partial scores summed
+    over ``model``, as GSPMD lays them out)."""
+    if is_dtensor(q):
+        mb = 0 if mask.shape[0] == q.shape[0] else None
+        out = on_local_heads(lambda *a: _sdpa(cfg, *a, pairs=pairs),
+                             (q, k, v, mask), (0, 0, 0, mb), (2, 2, 2, None),
+                             ((0, 2),))
+        if out is not None:
+            return out
     B, S, nh, hd = q.shape
     nkv = k.shape[2]
-    qg = q.reshape(B, S, nkv, nh // nkv, hd)
+    qg = split_dim(q, 2, (nkv, nh // nkv))
     logits = torch.einsum("bskgh,btkh->bkgst", qg, k).float() / (hd ** 0.5)
+    masked = note_attention_scores(q, k, mask, pairs)
     logits = torch.where(mask[:, None, None], logits,
                          torch.full_like(logits, -1e30))
     w = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bkgst,btkh->bskgh", w, v).reshape(B, S, nh, hd)
+    out = merge_dims(torch.einsum("bkgst,btkh->bskgh", w, v), 2, 3)
+    note_attention_output(masked, q, k, v, out)
+    return out
+
+
+def causal_pairs(S: int, window: Optional[int]) -> int:
+    """(query, key) pairs a causal mask over S contiguous positions
+    keeps: row s sees min(s + 1, window) keys."""
+    w = S if window is None else min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
 
 
 def causal_mask(cfg: ModelConfig, q_pos: Tensor, kv_pos: Tensor) -> Tensor:
@@ -223,11 +249,12 @@ def attn_forward(cfg: ModelConfig, p: dict, x: Tensor,
         positions = torch.arange(S, device=x.device)
     q, k, v = _project_qkv(cfg, p, x, positions)
     if force_ref:
-        out = _sdpa(cfg, q, k, v, causal_mask(cfg, positions, positions))
+        out = _sdpa(cfg, q, k, v, causal_mask(cfg, positions, positions),
+                    causal_pairs(S, cfg.sliding_window))
     else:
         out = kops.flash_attention(q, k, v, causal=True,
                                    window=cfg.sliding_window)
-    y = torch.matmul(out.reshape(B, S, -1), p["wo"])
+    y = torch.matmul(merge_dims(out, 2, 3), p["wo"])
     return y, (k, v)
 
 
@@ -256,7 +283,7 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
     L = cfg.n_layers if n_layers is None else n_layers
     if cfg.sliding_window is not None:
         capacity = min(capacity, cfg.sliding_window)
-    shape = (L, batch, capacity, cfg.n_kv_heads, cfg.hd)
+    shape = (L, batch, capacity, cfg.n_kv_eff, cfg.hd)
     if cfg.kv_cache_dtype == "int8":
         return QuantKVCache(
             k=torch.zeros(shape, dtype=torch.int8, device=device),
@@ -279,19 +306,25 @@ def cache_from_prefill(cfg: ModelConfig, k: Tensor, v: Tensor,
     at ``[0, S)``, or a ring's last ``C`` at ``p % C``), the rest zero. An
     int8 cache holds the kept positions' codes and scales, and elsewhere
     what the JAX package's quantised zero padding holds: codes 0, scales
-    1e-8."""
+    1e-8. Built without an indexed write (a gather of the kept positions
+    in slot order, then the empty slots), so DTensor K/V give a cache
+    with their placements."""
     L, B, S = k.shape[:3]
-    cache = init_cache(cfg, B, capacity, k.device, k.dtype, n_layers=L)
-    kept, slots = (t.to(k.device) for t in seed_slots(cfg, S,
-                                                      cache.capacity))
-    quant = isinstance(cache, QuantKVCache)
-    if quant:
-        cache.k_scale.fill_(1e-8)
-        cache.v_scale.fill_(1e-8)
-    for name, rows in kv_fields(k[:, :, kept], v[:, :, kept], quant):
-        getattr(cache, name)[:, :, slots] = rows
-    cache.length.fill_(S)
-    return cache
+    C = capacity if cfg.sliding_window is None \
+        else min(capacity, cfg.sliding_window)
+    kept, slots = seed_slots(cfg, S, C)
+    order = kept[torch.argsort(slots)].to(k.device)   # slot j: order[j]
+    quant = cfg.kv_cache_dtype == "int8"
+    fields = {}
+    for name, rows in kv_fields(k.index_select(2, order),
+                                v.index_select(2, order), quant):
+        empty = list(rows.shape)
+        empty[2] = C - order.numel()
+        fill = 1e-8 if name.endswith("_scale") else 0
+        fields[name] = rows if not empty[2] else torch.cat([rows, torch.full(
+            empty, fill, dtype=rows.dtype, device=rows.device)], dim=2)
+    length = torch.full((), S, dtype=torch.int32, device=k.device)
+    return (QuantKVCache if quant else KVCache)(**fields, length=length)
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
@@ -304,7 +337,8 @@ def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
     with them. A sliding window raises ``ValueError``: blocks are addressed
     by position, a ring by position modulo its capacity."""
     cfg.validate(paged=True)
-    shape = (cfg.n_layers, n_blocks + 1, block_size, cfg.n_kv_heads, cfg.hd)
+    shape = (cfg.n_layers, n_blocks + 1, block_size, cfg.n_kv_eff,
+             cfg.hd)
     quant = cfg.kv_cache_dtype == "int8"
     dtype = torch.int8 if quant else (dtype or cfg.tdtype)
     scales = {}
@@ -348,13 +382,39 @@ def _decode_attend(cfg: ModelConfig, p: dict, q: Tensor, k: Tensor,
         out = _sdpa(cfg, q, k, v, valid[:, None, :])
     else:
         out = kops.decode_attention(q, k, v, valid)
-    return torch.matmul(out.reshape(B, 1, -1), p["wo"])
+    return torch.matmul(merge_dims(out, 2, 3), p["wo"])
 
 
 def _rope_positions(pos: Tensor) -> Tensor:
     """RoPE positions of the new token: [1] for a shared position, [B, 1]
     per row."""
     return pos.reshape(1) if pos.dim() == 0 else pos[:, None]
+
+
+def _write_slot_sharded(buf: Tensor, layer: int, idx: Tensor,
+                        new: Tensor) -> None:
+    """``buf[layer].index_copy_(1, idx, new)`` for a DTensor cache: ``new``
+    ([B, 1, ...]) laid out as the layer's slice of ``buf`` ([L, B, C, ...])
+    and written into each rank's shard in place (DTensor has no in-place
+    ``index_copy_`` rule in some PyTorch versions). A rank whose shard of
+    a slot-split cache (``seq_sharded_cache``) does not hold the slot
+    writes its own values back."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = buf.device_mesh
+    pl = tuple(Shard(p.dim - 1) if p.is_shard() and p.dim != 2
+               else Replicate() for p in buf.placements)
+    local = buf.to_local()[layer]
+    rows = new.redistribute(mesh, pl).to_local()
+    if is_dtensor(idx):             # the position: replicated
+        idx = idx.full_tensor()
+    for i, p in enumerate(buf.placements):
+        if p.is_shard(2):           # slots split: this rank's range
+            n = local.shape[1]
+            lo = mesh.get_local_rank(i) * n
+            inside = (idx >= lo) & (idx < lo + n)
+            idx = (idx - lo).clamp(0, n - 1)
+            rows = torch.where(inside, rows, local.index_select(1, idx))
+    local.index_copy_(1, idx, rows)
 
 
 def attn_decode_stacked(cfg: ModelConfig, p: dict, x: Tensor, kv,
@@ -386,7 +446,10 @@ def attn_decode_stacked(cfg: ModelConfig, p: dict, x: Tensor, kv,
     if pos.dim() == 0:
         idx = slot.reshape(1).long()
         for buf, new in pairs:
-            buf[layer].index_copy_(1, idx, new)
+            if is_dtensor(buf):
+                _write_slot_sharded(buf, layer, idx, new)
+            else:
+                buf[layer].index_copy_(1, idx, new)
     else:
         rows = torch.arange(x.shape[0], device=x.device)
         for buf, new in pairs:
@@ -439,7 +502,7 @@ def attn_decode_paged(cfg: ModelConfig, p: dict, x: Tensor,
     if not (force_ref or quant):
         out = kops.paged_decode_attention(q, pc.k[layer, :P], pc.v[layer, :P],
                                           pc.block_tables, pos)
-        return torch.matmul(out.reshape(B, 1, -1), p["wo"])
+        return torch.matmul(merge_dims(out, 2, 3), p["wo"])
     # the JAX package's gather path masks by position only: a sentinel
     # entry reads a clipped real block, hidden because it lies past pos
     k, v, _ = kops.paged_gather(pc.k[layer, :P], pc.v[layer, :P],

@@ -84,6 +84,13 @@ class ModelConfig:
     head_dim: Optional[int] = None          # default d_model // n_heads
     qk_norm: bool = False
     rope_theta: float = 10_000.0
+    # KV-head replication for tensor parallelism (vLLM-style): the K/V
+    # projections and every cache (slot, ring, paged, int8) widen to
+    # n_kv_eff = n_kv_heads * kv_repeat heads, so each rank of the model
+    # axis owns whole KV heads. The replicas are separate weights here, as
+    # in the JAX package (whose checkpoints tie them); n_kv_eff must
+    # divide n_heads
+    kv_repeat: int = 1
     attn_every: int = 1                     # hybrid: shared attn every k
     # attention over the last `sliding_window` positions only (None =
     # full attention); the decode cache is then a ring of that many slots
@@ -116,6 +123,11 @@ class ModelConfig:
         if self.head_dim is not None:
             return self.head_dim
         return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def n_kv_eff(self) -> int:
+        """K/V heads the projections and caches hold (``kv_repeat``)."""
+        return self.n_kv_heads * self.kv_repeat
 
     @property
     def tdtype(self) -> torch.dtype:
@@ -203,6 +215,9 @@ class ModelConfig:
             if (self.n_heads <= 0 or self.n_kv_heads <= 0
                     or self.n_heads % self.n_kv_heads):
                 raise ValueError("GQA grouping needs n_kv_heads | n_heads")
+            if self.kv_repeat < 1 or self.n_heads % self.n_kv_eff:
+                raise ValueError("kv_repeat must keep n_kv_eff a divisor "
+                                 "of n_heads")
         if self.has_shared_attn and self.attn_every < 1:
             raise ValueError("attn_every must be >= 1")
         if self.backbone_kind == "mamba2" and self.ssm is None:

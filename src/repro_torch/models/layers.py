@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from ..compat import acc
+from ..compat import acc, is_dtensor
 from ..kernels import ops as kops
 from .config import ModelConfig
 
@@ -18,6 +18,123 @@ def _he(gen: torch.Generator, shape, dtype, fan_in: int) -> Tensor:
     scale = (2.0 / max(fan_in, 1)) ** 0.5 / 2.0
     return (torch.randn(shape, generator=gen, dtype=torch.float32,
                         device=gen.device) * scale).to(dtype)
+
+
+def split_dim(t: Tensor, dim: int, sizes: tuple) -> Tensor:
+    """``t.unflatten(dim, sizes)``. On a DTensor whose ``dim`` is sharded
+    over a mesh dimension that ``sizes[0]`` does not divide (qwen3's 8 KV
+    heads a 16-wide model axis), DTensor has no layout for the result and
+    refuses the view; that mesh dimension is replicated first (GSPMD
+    reshards such a reshape by itself)."""
+    if is_dtensor(t):
+        pls = t.placements
+        from torch.distributed.tensor import Replicate
+        d = dim % t.dim()
+        mesh = t.device_mesh
+        new = tuple(Replicate() if p.is_shard(d) and sizes[0] % mesh.size(i)
+                    else p for i, p in enumerate(pls))
+        if new != tuple(pls):
+            t = t.redistribute(mesh, new)
+    return t.unflatten(dim, sizes)
+
+
+def merge_dims(t: Tensor, start: int, end: int) -> Tensor:
+    """``t.flatten(start, end)``. A DTensor keeps a shard of the merged
+    dimension only on ``start`` and only where the mesh dimension divides
+    it (a head count that does not divide the model axis gets uneven
+    shards, which DTensor cannot flatten); other shards of the merged
+    dimensions are replicated first, as in :func:`split_dim`."""
+    if is_dtensor(t):
+        pls = t.placements
+        from torch.distributed.tensor import Replicate
+        lo, hi = start % t.dim(), end % t.dim()
+        mesh = t.device_mesh
+        new = tuple(
+            Replicate() if any(p.is_shard(d) for d in range(lo, hi + 1))
+            and not (p.is_shard(lo) and t.shape[lo] % mesh.size(i) == 0)
+            else p for i, p in enumerate(pls))
+        if new != tuple(pls):
+            t = t.redistribute(mesh, new)
+    return t.flatten(start, end)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward hands on a contiguous gradient."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def on_local_heads(fn, args: tuple, batch_dims: tuple, head_dims: tuple,
+                   out_dims: tuple):
+    """``fn(*args)`` on each rank's shards of DTensor ``args``
+    (``local_map``), for work independent across the batch rows and the
+    heads (attention, the scans). Per mesh dimension: where the first
+    argument's batch dimension is split, every argument's batch dimension
+    is; else, on ``model``, where the axis divides every head count, every
+    argument's head dimension is; else all is replicated there, and where
+    an argument is split there (qwen3's KV cache over the head dimension
+    when its 8 KV heads do not divide a 16-wide model axis) this returns
+    None: gathering it would move what the JAX package keeps sharded, and
+    the caller runs the work on DTensors instead. ``batch_dims`` /
+    ``head_dims``: each argument's dimension or None (not batched or not
+    per head: replicated there); ``out_dims``: (batch, head) dimension of
+    each output. A plain tensor argument is taken as replicated.
+
+    On DTensors directly, the reshapes inside such work merge two split
+    dimensions into strided shards, for which DTensor plans every
+    redistribution by a search over layouts that costs more than the
+    work; and a sequential scan would pay DTensor's dispatch each step."""
+    from torch.distributed.tensor import (Partial, Replicate, Shard,
+                                          distribute_tensor)
+    from torch.distributed.tensor.experimental import local_map
+    lead = args[0]
+    mesh = lead.device_mesh
+    modes = []
+    for i, name in enumerate(mesh.mesh_dim_names):
+        if lead.placements[i] == Shard(batch_dims[0]):
+            modes.append("batch")
+        elif name == "model" and all(
+                hd is None or a.shape[hd] % mesh.size(i) == 0
+                for a, hd in zip(args, head_dims)):
+            modes.append("heads")
+        elif any(is_dtensor(a) and not a.placements[i].is_replicate()
+                 for a in args):
+            return None
+        else:
+            modes.append(None)
+
+    def pls(bd, hd, whole=Replicate()):
+        # ``whole``: an argument the ranks that split a dimension it lacks
+        # all read whole; its gradient there is each rank's part (Partial)
+        return tuple(
+            (Shard(bd) if bd is not None else whole) if m == "batch"
+            else (Shard(hd) if hd is not None else whole) if m == "heads"
+            else Replicate() for m in modes)
+
+    def local(*a):
+        # contiguous outputs, and gradients of the inputs made contiguous:
+        # DTensor views a gradient's local shard as it is
+        out = fn(*(_ContiguousGrad.apply(t) if t.requires_grad else t
+                   for t in a))
+        if isinstance(out, tuple):
+            return tuple(t.contiguous() for t in out)
+        return out.contiguous()
+    args = tuple(a if is_dtensor(a) else distribute_tensor(
+        a, mesh, [Replicate()] * mesh.ndim, src_data_rank=None)
+        for a in args)
+    dims = tuple(zip(batch_dims, head_dims))
+    return local_map(local,
+                     out_placements=tuple(pls(bd, hd) for bd, hd in out_dims),
+                     in_placements=tuple(pls(bd, hd) for bd, hd in dims),
+                     in_grad_placements=tuple(pls(bd, hd, Partial())
+                                              for bd, hd in dims),
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
 # ----------------------------------------------------------------- norms
@@ -62,7 +179,59 @@ def init_embed(cfg: ModelConfig, gen: torch.Generator) -> dict:
 
 
 def embed_tokens(cfg: ModelConfig, p: dict, tokens: Tensor) -> Tensor:
+    if is_dtensor(p["tok"]):
+        return _embed_sharded(p["tok"], tokens)
     return p["tok"][tokens.long()]
+
+
+def _embed_sharded(table: Tensor, tokens: Tensor) -> Tensor:
+    """The lookup on a DTensor table on local shards (``local_map``): a
+    vocab-parallel table (``Shard(0)``) gathers the rank's own rows, zero
+    elsewhere, and hands back a ``Partial`` sum (the JAX package's
+    vocab-parallel embedding under GSPMD); a table split on ``d`` gives
+    rows split on ``d``. DTensor's own index on the table has, in some
+    PyTorch versions, a backward (``index_put``) its sharding rule
+    rejects."""
+    from torch.distributed.tensor import (Partial, Replicate, Shard,
+                                          distribute_tensor)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    if not is_dtensor(tokens):
+        tokens = distribute_tensor(tokens, mesh, [Replicate()] * mesh.ndim,
+                                   src_data_rank=None)
+    tab_pl, tok_pl, out_pl, grad_pl, vocab_dims = [], [], [], [], []
+    for i, tp in enumerate(table.placements):
+        split = tokens.placements[i] == Shard(0)
+        tok_pl.append(Shard(0) if split else Replicate())
+        # the table keeps a split of rows or columns where the tokens
+        # are whole; elsewhere it is read whole
+        tp = tp if tp.is_shard() and not split else Replicate()
+        tab_pl.append(tp)
+        if tp == Shard(0):
+            out_pl.append(Partial())
+            vocab_dims.append(i)
+        elif tp == Shard(1):
+            out_pl.append(Shard(2))
+        else:
+            out_pl.append(tok_pl[-1])
+        grad_pl.append(Partial() if split and tp.is_replicate() else tp)
+    lo = 0
+    for i in vocab_dims:       # the first row of this rank's shard
+        lo = lo * mesh.size(i) + mesh.get_local_rank(i)
+
+    def lookup(rows, tok):
+        tok = tok.long()
+        if not vocab_dims:
+            return rows[tok]
+        idx = tok - lo * rows.shape[0]
+        hit = (idx >= 0) & (idx < rows.shape[0])
+        out = rows[idx.clamp(0, rows.shape[0] - 1)]
+        return torch.where(hit[..., None], out, torch.zeros_like(out))
+    return local_map(lookup, out_placements=(tuple(out_pl),),
+                     in_placements=(tuple(tab_pl), tuple(tok_pl)),
+                     in_grad_placements=(tuple(grad_pl), tuple(tok_pl)),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        table, tokens)
 
 
 def lm_head(cfg: ModelConfig, p: dict, x: Tensor) -> Tensor:

@@ -21,9 +21,10 @@ from typing import NamedTuple
 
 import torch
 
+from ..compat import is_dtensor
 from ..kernels import ops as kops
 from .config import ModelConfig
-from .layers import _he
+from .layers import _he, on_local_heads
 
 Tensor = torch.Tensor
 
@@ -110,8 +111,14 @@ def mamba2_forward(cfg: ModelConfig, p: dict, x: Tensor,
     dt = torch.nn.functional.softplus(dt.float() + p["dt_bias"])  # [B,S,nh]
     la = dt * -torch.exp(p["A_log"])                               # log decay
     xh = xi.reshape(B, S, nh, hd)
-    y, s_final = kops.ssd_scan(xh, dt, la, bc[..., :ds], bc[..., ds:],
-                               force_ref=force_ref)
+    sharded = None
+    if force_ref and is_dtensor(xh):  # sharded: per rank's heads
+        sharded = on_local_heads(
+            lambda *a: kops.ssd_scan(*a, force_ref=True),
+            (xh, dt, la, bc[..., :ds], bc[..., ds:]), (0, 0, 0, 0, 0),
+            (2, 2, 2, None, None), ((0, 2), (0, 1)))
+    y, s_final = sharded if sharded is not None else kops.ssd_scan(
+        xh, dt, la, bc[..., :ds], bc[..., ds:], force_ref=force_ref)
     y = y.float() + p["D"][None, None, :, None] * xh.float()
     y = _gated_norm(cfg, p, y.reshape(B, S, d_in).to(x.dtype), z)
     out = torch.matmul(y, p["out_proj"])

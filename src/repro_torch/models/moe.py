@@ -1,7 +1,8 @@
 """Fine-grained Mixture-of-Experts (DeepSeek-MoE / Granite style).
 
-The port of ``repro.models.moe``'s single-device path (its
-``_moe_local``; the ``shard_map`` paths come with ``sharding/``). Shared
+The port of ``repro.models.moe``: its single-device path (``_moe_local``)
+and, when a mesh is installed (``sharding.context``), its two sharded
+dispatches (``_moe_shardmap``, ``_moe_shardmap_ep``). Shared
 experts always run; routed experts take top-k token choice. The three
 dispatches of the JAX package:
 
@@ -36,13 +37,36 @@ the routing; the decode step calls ``moe_apply``, which leaves it out.
 
 Entry points: ``moe_forward(cfg, p, x, force_ref=False) -> (y, aux)``,
 ``moe_apply(cfg, p, x, force_ref=False) -> (y, probs, experts)``.
+
+Under a mesh ``moe_forward`` takes DTensors and runs the JAX package's
+``shard_map`` bodies on the local shards through ``local_map``, on the
+reference math only (the sharded path takes no kernel):
+
+* ``_moe_shardmap``: each data shard routes its own tokens (a global sort
+  would gather every shard's activations); the experts' hidden dimension
+  is split over ``model``, so each rank's down-projection is a partial
+  sum, handed back as a ``Partial`` DTensor that the next op reduces over
+  ``model`` (the JAX package's ``psum``), and the aux loss of each data
+  shard comes back as one entry of a vector sharded over the batch axes,
+  whose mean is the JAX package's ``pmean``.
+* ``_moe_shardmap_ep``: the GShard pattern. Experts are split over
+  ``model``; each model rank routes a contiguous token slice, packs a
+  ``[msize, C, d]`` send buffer by destination rank, exchanges it with
+  ``all_to_all`` both ways around its local experts' capacity dispatch,
+  and hands its slice back sharded over ``model`` on the token axis,
+  where DTensor's all-gather rebuilds the tokens (the JAX package's
+  ``all_gather``; its gradient is a slice, not a reduce-scatter).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..kernels import ops as kops
 from ..kernels import ref
+from ..sharding import context
+from ..sharding.partition import P, batch_split, mesh_shape, placements
 from .config import ModelConfig
 from .layers import _he
 
@@ -233,6 +257,241 @@ def moe_apply(cfg: ModelConfig, p: dict, x: Tensor,
 def moe_forward(cfg: ModelConfig, p: dict, x: Tensor,
                 force_ref: bool = False):
     """x [B, S, d] -> (y [B, S, d], aux loss f32 scalar): ``moe_apply``
-    and the load-balance loss of its routing."""
-    y, probs, idx = moe_apply(cfg, p, x, force_ref=force_ref)
-    return y, _aux_loss(cfg, probs, idx)
+    and the load-balance loss of its routing; under a mesh, the sharded
+    dispatches (the expert-parallel one with ``expert_parallel`` when the
+    experts and the tokens divide over ``model``)."""
+    mesh = context.get_mesh()
+    if mesh is None:
+        y, probs, idx = moe_apply(cfg, p, x, force_ref=force_ref)
+        return y, _aux_loss(cfg, probs, idx)
+    if not force_ref:
+        raise ValueError("the sharded MoE runs the reference math: pass "
+                         "force_ref=True under a mesh")
+    opts = context.get_options()
+    ep = bool(getattr(opts, "expert_parallel", False))
+    msize = mesh_shape(mesh).get("model", 1)
+    tokens = x.shape[0] * x.shape[1]
+    if (ep and msize > 1 and cfg.moe.n_experts % msize == 0
+            and tokens % msize == 0):
+        return _moe_shardmap_ep(cfg, p, x, mesh)
+    return _moe_shardmap(cfg, p, x, mesh)
+
+
+def _local_map(mesh, fn, args: tuple, in_specs: tuple, out_placements,
+               bspec):
+    """``fn`` on the local shards of ``args`` (DTensors, laid out as
+    ``in_specs`` first: a tree of :class:`P` per argument), its outputs
+    wrapped back as DTensors with ``out_placements``.
+
+    Gradients: an input replicated over an axis whose ranks split the work
+    (the batch axes when the tokens are split, ``bspec``; and ``model``,
+    where ``fn`` splits the experts, the hidden dimension or the tokens,
+    and lets rank 0 alone hand back what every rank computed whole) gets
+    a ``Partial`` gradient there, each rank's contribution; where the work
+    is duplicated (the batch axes of a replicated batch) a replicated one.
+    """
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    from torch.utils import _pytree as pytree
+
+    def ordered(arg, spec):   # the specs in the argument's key order
+        if isinstance(arg, dict):
+            return {k: ordered(v, spec[k]) for k, v in arg.items()}
+        return spec
+    in_specs = tuple(ordered(a, s) for a, s in zip(args, in_specs))
+    flat = pytree.tree_leaves(in_specs, is_leaf=lambda s: isinstance(s, P))
+    in_pl = tuple(placements(s, mesh) for s in flat)
+    split = ("model",) + (tuple(bspec) if bspec is not None else ())
+
+    def grad_pl(pl):
+        return tuple(p if not isinstance(p, Replicate)
+                     else (Partial() if ax in split else p)
+                     for p, ax in zip(pl, mesh.mesh_dim_names))
+    return local_map(fn, out_placements=out_placements, in_placements=in_pl,
+                     in_grad_placements=tuple(grad_pl(p) for p in in_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def _out_placements(mesh, bspec, model) -> tuple:
+    """Placements of an output sharded on dim 0 over the batch axes (when
+    ``bspec``) and placed ``model`` on the model axis."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(model if ax == "model"
+                 else (Shard(0) if bspec is not None else Replicate())
+                 for ax in mesh.mesh_dim_names)
+
+
+def _moe_shardmap(cfg: ModelConfig, p: dict, x: Tensor, mesh):
+    """Per-data-shard routing with hidden-sharded experts (the JAX
+    package's ``_moe_shardmap``)."""
+    from torch.distributed.tensor import Partial
+    msize = mesh_shape(mesh).get("model", 1)
+    m = cfg.moe
+    fe_sharded = msize > 1 and m.d_expert % msize == 0
+    dsh = m.d_expert * m.n_shared_experts
+    sh_sharded = bool(msize > 1 and m.n_shared_experts and dsh % msize == 0)
+    bspec = batch_split(mesh, x.shape[0])
+    x_spec = P(bspec, None, None)
+    col = P(None, None, "model") if fe_sharded else P(None, None, None)
+    p_specs = {"router": P(None, None), "w_gate": col, "w_up": col,
+               "w_down": (P(None, "model", None) if fe_sharded
+                          else P(None, None, None))}
+    if "shared" in p:
+        p_specs["shared"] = {
+            "gate": P(None, "model") if sh_sharded else P(None, None),
+            "up": P(None, "model") if sh_sharded else P(None, None),
+            "down": P("model", None) if sh_sharded else P(None, None)}
+    p_in = {k: p[k] for k in p_specs}
+    first = mesh.get_local_rank("model") == 0
+
+    def whole(t):   # computed whole on every model rank: rank 0's counts
+        return t if first else torch.zeros_like(t)
+
+    def local_fn(p_local, x_local):
+        B, S, d = x_local.shape
+        x2d = x_local.reshape(B * S, d)
+        w, idx, probs = _route(cfg, p_local, x2d)
+        y = _dispatch(cfg, p_local, x2d, w, idx, decode=(S == 1),
+                      force_ref=True).reshape(B, S, d)
+        out = [y if fe_sharded else whole(y)]
+        if m.n_shared_experts:
+            ys = _shared_experts(p_local["shared"], x2d, True) \
+                .reshape(B, S, d)
+            out.append(ys if sh_sharded else whole(ys))
+        return (*out, whole(_aux_loss(cfg, probs, idx)[None]))
+
+    # every output is a sum over model: of partial down-projections (the
+    # psum over model), or of rank 0's whole value and zeros
+    sums = _out_placements(mesh, bspec, Partial())
+    outs = _local_map(mesh, local_fn, (p_in, x), (p_specs, x_spec),
+                      (sums,) * (3 if "shared" in p else 2), bspec)
+    y, ys, aux = outs if "shared" in p else (outs[0], None, outs[1])
+    if ys is not None:
+        y = y + ys
+    # every data shard routed a disjoint token slice: the mean of their
+    # aux losses (the pmean over the batch axes)
+    return y, aux.mean()
+
+
+def _count(idx: Tensor, n: int) -> Tensor:
+    """``bincount(idx, minlength=n)`` for ``idx < n``, with a static shape
+    (a scatter: the dry-run's meta tensors have no ``bincount``)."""
+    return torch.zeros(n, dtype=torch.long, device=idx.device) \
+        .scatter_add_(0, idx, torch.ones_like(idx))
+
+
+def _moe_shardmap_ep(cfg: ModelConfig, p: dict, x: Tensor, mesh):
+    """Expert-parallel MoE: experts sharded over ``model``, tokens
+    exchanged with all-to-all (the JAX package's ``_moe_shardmap_ep``).
+
+    Each model rank takes a contiguous slice of the (data-)local tokens,
+    routes it, packs a fixed-capacity [msize, C, d] send buffer keyed by
+    the destination rank (= expert // E_loc), all-to-alls it, runs the
+    local experts with capacity dispatch, all-to-alls the outputs back,
+    and combines its slice; DTensor then all-gathers the slices. Shared
+    experts stay replicated.
+    """
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    group = mesh.get_group("model")
+    msize = mesh_shape(mesh)["model"]
+    rank = mesh.get_local_rank("model")
+    m = cfg.moe
+    e_loc = m.n_experts // msize
+    B, S, d = x.shape
+    bspec = batch_split(mesh, B)
+    x_spec = P(bspec, None, None)
+    p_specs = {"router": P(None, None), "w_gate": P("model", None, None),
+               "w_up": P("model", None, None),
+               "w_down": P("model", None, None)}
+    if "shared" in p:
+        p_specs["shared"] = {"gate": P(None, None), "up": P(None, None),
+                             "down": P(None, None)}
+    p_in = {k: p[k] for k in p_specs}
+
+    def a2a(t):   # [msize, ...] rows exchanged with the model ranks
+        return funcol.all_to_all_single_autograd(t.contiguous(), None, None,
+                                                 group)
+
+    def local_fn(p_local, x_local):
+        Bl, Sl, dl = x_local.shape
+        T = Bl * Sl
+        x2d = x_local.reshape(T, dl)
+        t_r = max(T // msize, 1)
+        start = min(rank * t_r, T - t_r)       # clamped, as dynamic_slice
+        xr = x2d[start:start + t_r]
+        w, idx, probs = _route(cfg, p_local, xr)
+        k = m.top_k
+        dest = idx // e_loc                                  # [t_r, k]
+        local_eid = idx % e_loc
+        # pack send buffers: capacity per destination rank
+        C = max(1, int(t_r * k * m.capacity_factor / msize))
+        flat_dest = dest.reshape(-1)
+        order = torch.argsort(flat_dest, stable=True)
+        sorted_dest = flat_dest[order]
+        token_of = order // k
+        counts = _count(flat_dest, msize)
+        starts = torch.cumsum(counts, 0) - counts
+        pos = torch.arange(t_r * k, device=x2d.device) - starts[sorted_dest]
+        keep = pos < C
+        pos_c = torch.where(keep, pos, 0)
+        send_x = xr.new_zeros(msize, C, dl).index_put(
+            (sorted_dest, pos_c),
+            torch.where(keep[:, None], xr[token_of], 0), accumulate=True)
+        send_e = torch.zeros(msize, C, dtype=torch.long,
+                             device=x2d.device).index_put(
+            (sorted_dest, pos_c),
+            torch.where(keep, local_eid.reshape(-1)[order] + 1, 0),
+            accumulate=True)                                 # 0 = empty
+        rx = a2a(send_x).reshape(msize * C, dl)
+        re_ = a2a(send_e).reshape(msize * C)
+        valid = re_ > 0
+        eid = torch.where(valid, re_ - 1, 0)
+        # local-expert capacity FFN over the received tokens
+        Ce = max(1, int(msize * C * 2 // max(e_loc, 1)))
+        key = torch.where(valid, eid, e_loc)                 # invalid last
+        ords = torch.argsort(key, stable=True)
+        se = eid[ords]
+        cnts = _count(key, e_loc + 1)
+        sts = torch.cat([(torch.cumsum(cnts, 0) - cnts)[:e_loc],
+                         cnts.new_zeros(1)])
+        posx = torch.arange(msize * C, device=x2d.device) \
+            - sts[torch.clamp(se, max=e_loc)]
+        kp = (posx < Ce) & valid[ords]
+        px = torch.where(kp, posx, 0)
+        row = torch.clamp(se, max=e_loc - 1)
+        buf = rx.new_zeros(e_loc, Ce, dl).index_put(
+            (row, px), torch.where(kp[:, None], rx[ords], 0),
+            accumulate=True)
+        g = torch.einsum("ecd,edf->ecf", buf, p_local["w_gate"])
+        u = torch.einsum("ecd,edf->ecf", buf, p_local["w_up"])
+        h = torch.nn.functional.silu(g.float()).to(buf.dtype) * u
+        y_buf = torch.einsum("ecf,efd->ecd", h, p_local["w_down"])
+        y_sorted = y_buf[row, px] * kp[:, None].to(y_buf.dtype)
+        y_recv = y_buf.new_zeros(msize * C, dl).index_put(
+            (ords,), y_sorted, accumulate=True)
+        # return trip
+        back = a2a(y_recv.reshape(msize, C, dl))
+        # unpack to the token slice, apply the combine weights
+        y_flat = back[sorted_dest, pos_c] * keep[:, None].to(back.dtype)
+        y_flat = y_flat * w.reshape(-1)[order][:, None].to(y_flat.dtype)
+        yr = torch.zeros_like(xr).index_put((token_of,), y_flat,
+                                            accumulate=True)
+        if m.n_shared_experts:
+            yr = yr + _shared_experts(p_local["shared"], xr, True)
+        return yr, _aux_loss(cfg, probs, idx)[None]
+
+    # the slices are sharded over model on the token axis, inside each
+    # data shard; so are the aux losses, whose mean is the pmean
+    out = _out_placements(mesh, bspec, Shard(0))
+    yr, aux = _local_map(mesh, local_fn, (p_in, x), (p_specs, x_spec),
+                         (out, out), bspec)
+    # all-gather the slices over model and keep the data shard's first T
+    # rows (more when the last ranks' clamped slices repeated tokens)
+    whole = _out_placements(mesh, bspec, Replicate())
+    sizes = mesh_shape(mesh)
+    T = (B // math.prod(sizes[a] for a in bspec) if bspec else B) * S
+    y = DTensor.from_local(
+        yr.redistribute(mesh, whole).to_local()[:T], mesh, whole,
+        run_check=False)
+    return y.reshape(B, S, d), aux.mean()

@@ -23,10 +23,10 @@ from typing import NamedTuple
 
 import torch
 
-from ..compat import acc
+from ..compat import acc, is_dtensor
 from ..kernels import ops as kops
 from .config import ModelConfig
-from .layers import _he
+from .layers import _he, on_local_heads
 
 Tensor = torch.Tensor
 
@@ -114,7 +114,14 @@ def rwkv6_time_mix(cfg: ModelConfig, p: dict, x: Tensor, prev: Tensor,
     v = torch.matmul(xv, p["wv"]).reshape(B, S, nh, hd)
     g = torch.matmul(xg, p["wg"])
     la = _decay(p, xw).reshape(B, S, nh, hd)            # log decay, f32
-    y, s_final = kops.rwkv6_scan(r, k, v, la, p["u"], force_ref=force_ref)
+    sharded = None
+    if force_ref and is_dtensor(r):   # sharded: per rank's heads
+        sharded = on_local_heads(
+            lambda *a: kops.rwkv6_scan(*a, force_ref=True),
+            (r, k, v, la, p["u"]), (0, 0, 0, 0, None), (2, 2, 2, 2, 0),
+            ((0, 2), (0, 1)))
+    y, s_final = sharded if sharded is not None else kops.rwkv6_scan(
+        r, k, v, la, p["u"], force_ref=force_ref)
     y = _group_norm(p, y, nh, hd).reshape(B, S, d)
     y = y * torch.nn.functional.silu(acc(g))
     out = torch.matmul(y.to(x.dtype), p["wo"])

@@ -35,6 +35,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..compat import DEFAULT_DEVICE, resolve_device
+from ..sharding.context import get_mesh
 from . import attention, mamba2, moe, rwkv6
 from .attention import PagedKVCache
 from .config import ModelConfig
@@ -133,8 +134,11 @@ def _block_ffn(cfg: ModelConfig, p: dict, x: Tensor, force_ref: bool):
 def _block_ffn_decode(cfg: ModelConfig, p: dict, x: Tensor,
                       force_ref: bool) -> Tensor:
     """``_block_ffn`` of a decode step, which has no use for the MoE's aux
-    loss and so does not compute it."""
+    loss and so does not compute it (but under a mesh, where the sharded
+    dispatch computes it, as the JAX package's decode step does)."""
     if "moe" in p:
+        if get_mesh() is not None:
+            return moe.moe_forward(cfg, p["moe"], x, force_ref=force_ref)[0]
         return moe.moe_apply(cfg, p["moe"], x, force_ref=force_ref)[0]
     return apply_mlp(cfg, p["mlp"], x, force_ref=force_ref)
 
@@ -198,8 +202,11 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor,
             prefix_embeds: Optional[Tensor] = None,
             return_cache: bool = False,
             cache_capacity: Optional[int] = None,
-            force_ref: bool = False) -> ModelOutput:
-    """tokens [B, S] -> logits [B, P + S, V].
+            force_ref: bool = False,
+            last_logits_only: bool = False) -> ModelOutput:
+    """tokens [B, S] -> logits [B, P + S, V] (``last_logits_only``: the
+    last position's, [B, 1, V], the only ones a prefill serves; the JAX
+    package slices the full logits and XLA computes only that row).
 
     ``prefix_embeds`` ``[B, P, d]`` (the VLM and audio families' stubbed
     frontend: image patches or conditioning frames at ``d_model``) go in
@@ -279,6 +286,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for aux in aux_parts:
         aux_total = aux_total + aux
+    if last_logits_only:
+        x = x[:, -1:]
     x = apply_norm(cfg, params["final_norm"], x)
     logits = lm_head(cfg, params["embed"], x)
     if return_cache and cache_capacity is not None:

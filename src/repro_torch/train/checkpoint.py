@@ -18,6 +18,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..compat import is_dtensor
 from . import _msgpack
 from .tree import tree_items, tree_leaves, tree_unflatten
 
@@ -70,7 +71,10 @@ def restore_checkpoint(path: str, like: Any) -> Any:
     """Restore into the structure of ``like``: each leaf on its ``like``
     leaf's device, in its dtype and layout, in memory PyTorch allocated
     (a numpy buffer's alignment could change a vectorised reduction's
-    order, and so a resumed run's last bits)."""
+    order, and so a resumed run's last bits). Where a ``like`` leaf is a
+    DTensor, the restored leaf is one too, on its mesh and placements
+    (each rank reads the whole leaf and keeps its shard), as the JAX
+    package puts each leaf on its ``like`` leaf's sharding."""
     p = pathlib.Path(path)
     leaves_like = tree_leaves(like)
     meta = json.loads((p / "meta.json").read_text())
@@ -87,7 +91,15 @@ def restore_checkpoint(path: str, like: Any) -> Any:
             if tuple(t.shape) != tuple(ref.shape):
                 raise ValueError(f"leaf {i}: shape {tuple(t.shape)} != "
                                  f"{tuple(ref.shape)}")
-            out[i] = torch.empty_like(ref).copy_(t)
+            if is_dtensor(ref):
+                from torch.distributed.tensor import distribute_tensor
+                mesh = ref.device_mesh
+                full = torch.empty(t.shape, dtype=ref.dtype,
+                                   device=mesh.device_type).copy_(t)
+                out[i] = distribute_tensor(full, mesh, ref.placements,
+                                           src_data_rank=None)
+            else:
+                out[i] = torch.empty_like(ref).copy_(t)
     return tree_unflatten(like, out)
 
 

@@ -16,8 +16,11 @@ def next_token_loss(logits: Tensor, tokens: Tensor,
     logits = logits[:, :-1, :].float()
     targets = tokens[:, 1:].long()
     lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, targets[..., None])[..., 0]
-    nll = lse - picked
+    # the difference is taken before the trailing axis is dropped: on
+    # vocab-sharded DTensor logits the gather's result is a masked partial
+    # sum whose mask keeps that axis
+    picked = torch.gather(logits, -1, targets[..., None])
+    nll = (lse[..., None] - picked)[..., 0]
     if mask is not None:
         m = mask[:, 1:].float()
         return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)

@@ -53,7 +53,9 @@ def lr_schedule(cfg: AdamWConfig, step) -> Tensor:
 
 def init_opt_state(params: Any) -> OptState:
     leaves = tree_leaves(params)
-    zeros = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    # zeros_like: a DTensor parameter gets moments with its placements
+    zeros = [torch.zeros_like(p, dtype=torch.float32,
+                              memory_format=torch.contiguous_format)
              for p in leaves]
     dev = leaves[0].device
     return OptState(m=tree_unflatten(params, zeros),

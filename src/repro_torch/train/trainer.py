@@ -15,7 +15,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from ..compat import DEFAULT_DEVICE
+from ..compat import DEFAULT_DEVICE, is_dtensor
 from ..models import forward
 from ..models.config import ModelConfig
 from .loss import next_token_loss
@@ -94,10 +94,24 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         new_params, new_opt, metrics = adamw_update(
             opt_cfg, tree_unflatten(state.params, grads), state.opt,
             state.params)
+        # sharded: the new state in the old state's placements (DTensor
+        # picks each update's output layout by itself)
+        new_params = _placed_like(new_params, state.params)
+        new_opt = new_opt._replace(m=_placed_like(new_opt.m, state.opt.m),
+                                   v=_placed_like(new_opt.v, state.opt.v))
         metrics = dict(metrics, loss=ce, total_loss=total)
         return TrainState(params=new_params, opt=new_opt), metrics
 
     return train_step
+
+
+def _placed_like(tree: Any, like: Any) -> Any:
+    """``tree``'s DTensor leaves redistributed to the placements of
+    ``like``'s (plain leaves as they are)."""
+    return tree_unflatten(like, [
+        new.redistribute(old.device_mesh, old.placements)
+        if is_dtensor(old) and new.placements != old.placements else new
+        for new, old in zip(tree_leaves(tree), tree_leaves(like))])
 
 
 def init_train_state(cfg: ModelConfig, seed: int = 0,

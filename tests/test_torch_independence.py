@@ -3,7 +3,10 @@
 checkpoint codec is the port's own), and the default device
 refuses to fall back to the CPU."""
 import ast
+import os
 import pathlib
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -43,3 +46,34 @@ def test_default_device_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         compat.resolve_device()
     assert compat.resolve_device("cpu").type == "cpu"
+
+
+DISTRIBUTION = ("repro_torch.sharding.context", "repro_torch.sharding.partition",
+                "repro_torch.launch.mesh", "repro_torch.launch.shapes",
+                "repro_torch.launch.steps", "repro_torch.launch.dryrun",
+                "repro_torch.roofline.analysis")
+
+
+def test_every_module_imports_without_jax_at_runtime():
+    """Importing every module of the port (the distribution layer's
+    among them) loads neither JAX nor the JAX package."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print('NAMES', ','.join(names))\n"
+        "print('BAD', ','.join(bad))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, env=env, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines()
+                 if line.startswith(("NAMES", "BAD")))
+    names = lines["NAMES"].split(",")
+    assert set(DISTRIBUTION) <= set(names)
+    assert lines["BAD"].strip() == "", lines["BAD"]
