@@ -15,6 +15,7 @@ def config() -> ModelConfig:
         d_ff=14336,
         vocab_size=32000,
         attn_every=6,           # shared attn+MLP block every 6 Mamba2 blocks
-        ssm=SSMConfig(d_state=64, d_conv=4, expand=2, head_dim=64),
+        ssm=SSMConfig(d_state=64, d_conv=4, expand=2, head_dim=64,
+                      chunk=256),
         source="arXiv:2411.15242",
     )

@@ -7,11 +7,15 @@ kernels' layouts as strided views, so no operand is copied.
 
 Dispatch: the kernel modules take the plain version for a CPU tensor and
 launch the Hopper kernel for a CUDA tensor, or raise. ``force_ref=True``
-bypasses both and runs the JAX package's oracle (``ref``). Tests and
-``chip_smoke.py`` pass it to hold the kernels against that math, and the
-trainer (``train/trainer.py``) to differentiate: the kernels are
-forward-only, as the JAX package's are, and refuse an input that
-requires grad (``_cuda.refuse_grad``).
+bypasses both and runs the JAX package's oracle (``ref``). The models'
+reference path passes it for attention and the FFN, to hold the kernels
+against that math and to differentiate (the trainer,
+``train/trainer.py``): the kernels are forward-only, as the JAX
+package's are, and refuse an input that requires grad
+(``_cuda.refuse_grad``). The scans' reference path is the JAX models'
+chunked math in ``models/mamba2.py`` and ``models/rwkv6.py``; here
+``force_ref`` on a scan means the sequential oracle, which only the
+tests use.
 """
 from __future__ import annotations
 
@@ -112,7 +116,9 @@ def rwkv6_scan(r: Tensor, k: Tensor, v: Tensor, la: Tensor, u: Tensor, *,
     -> (y [B,S,nh,hd] in r's dtype, s_final [B,nh,hd,hd] f32).
 
     The kernel gets ``[B, nh, S, hd]`` views and ``u`` with a head stride
-    and a batch stride of 0. ``force_ref`` runs the sequential oracle.
+    and a batch stride of 0. ``force_ref`` runs the sequential oracle
+    (a loop over S, for the tests only; the model's reference path is
+    ``models.rwkv6.wkv_chunked``).
     """
     B, S, nh, hd = r.shape
     if force_ref:
@@ -137,7 +143,8 @@ def ssd_scan(x: Tensor, dt: Tensor, la: Tensor, Bm: Tensor, Cm: Tensor, *,
 
     The kernel gets ``[B, nh, S, ...]`` views, with ``Bm``/``Cm`` on a head
     stride of 0. ``force_ref`` runs the sequential oracle (which takes
-    ``Bm``/``Cm`` repeated per head).
+    ``Bm``/``Cm`` repeated per head; a loop over S, for the tests only:
+    the model's reference path is ``models.mamba2.ssd_chunked``).
     """
     B, S, nh, hd = x.shape
     ds = Bm.shape[-1]

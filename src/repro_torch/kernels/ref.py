@@ -71,14 +71,14 @@ def ssd_scan_ref(x: Tensor, dt: Tensor, a: Tensor, Bm: Tensor, Cm: Tensor,
     """Sequential Mamba2 SSD oracle.
 
     x [BH,S,hd], dt [BH,S], a [BH,S] log-decay (= A*dt, < 0),
-    Bm/Cm [BH,S,ds]. Returns (y [BH,S,hd], s_final [BH,hd,ds] f32).
+    Bm/Cm [BH,S,ds]. Returns (y [BH,S,hd], s_final [BH,hd,ds] f32; f64
+    for f64 inputs).
     """
     BH, S, hd = x.shape
     ds = Bm.shape[-1]
-    s = (torch.zeros(BH, hd, ds, dtype=torch.float32, device=x.device)
-         if s0 is None else s0.float())
-    xf, bf, cf = x.float(), Bm.float(), Cm.float()
-    dtf, af = dt.float(), a.float()
+    xf, bf, cf, dtf, af = (acc(t) for t in (x, Bm, Cm, dt, a))
+    s = (torch.zeros(BH, hd, ds, dtype=xf.dtype, device=x.device)
+         if s0 is None else s0.to(xf.dtype))
     ys = []
     for t in range(S):
         s = torch.exp(af[:, t])[:, None, None] * s \

@@ -15,11 +15,12 @@ frontend that supplies ``n_prefix_embeds`` pre-projected embeddings at
 ``d_model``, which ``forward`` takes as ``prefix_embeds``). The JAX package's
 kernel flags (``use_kernels``, ``use_decode_kernel``) have no counterpart:
 in the port the device decides, and on a CUDA device the model always
-goes through the Hopper kernels. Two differences from the JAX config:
+goes through the Hopper kernels. One difference from the JAX config:
 the ``moe``, ``ssm`` and ``rwkv`` sub-configs are set only for a family
 that reads them (the JAX package chooses the recurrent block by the arch
-id), and ``SSMConfig`` has no chunk length, since the SSD kernel chooses
-its own.
+id). ``SSMConfig.chunk`` is the chunk length of the Mamba2 reference math
+(``models/mamba2.py``), as in the JAX package; the SSD kernel chooses its
+own.
 """
 from __future__ import annotations
 
@@ -61,8 +62,9 @@ class SSMConfig:
     d_state: int = 64             # Mamba2 SSD state per head
     d_conv: int = 4               # causal conv width
     expand: int = 2               # d_inner = expand * d_model
-    head_dim: int = 64            # SSD head dim (the SSD kernel picks its
-                                  # own chunk length)
+    head_dim: int = 64            # SSD head dim
+    chunk: int = 128              # the reference math's SSD chunk length
+                                  # (the SSD kernel picks its own)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,7 +253,7 @@ def reduced(cfg: ModelConfig, n_layers: int = 2,
     """Small variant of the same family for CPU tests (2 layers, d_model 256,
     f32, a sliding window cut to 64, at most 8 prefix embeddings, no
     activation checkpointing; a MoE at most 4 experts, top-2, one shared
-    expert, capacity factor 8), the same reduction as
+    expert, capacity factor 8; an SSD chunk of 32), the same reduction as
     ``repro.models.config.reduced``."""
     scale = d_model / cfg.d_model
     n_heads = max(1, min(cfg.n_heads, 4))
@@ -259,7 +261,7 @@ def reduced(cfg: ModelConfig, n_layers: int = 2,
     while n_heads % n_kv:
         n_kv -= 1
     ssm = cfg.ssm and dataclasses.replace(
-        cfg.ssm, d_state=min(cfg.ssm.d_state, 16), head_dim=32)
+        cfg.ssm, d_state=min(cfg.ssm.d_state, 16), head_dim=32, chunk=32)
     rwkv = cfg.rwkv and dataclasses.replace(cfg.rwkv, head_dim=32,
                                             decay_lora=16)
     moe = cfg.moe and dataclasses.replace(

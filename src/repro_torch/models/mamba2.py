@@ -8,12 +8,15 @@ a_t = exp(A dt_t), A < 0):
 
 Prefill (any batch: the continuous engine admits groups of equal-length
 prompts, one final state and conv tail per row) runs the scan through
-``kernels.ops.ssd_scan`` (the Hopper kernel
-on a CUDA device, its plain version on the CPU, the sequential oracle
-under ``force_ref``) where the JAX package ran its own jnp chunked scan;
-both compute the same function. ``D x`` stays outside the scan. Decode is
-the single-step recurrence against a ``[B, nh, hd, ds]`` state. ``A_log``,
-``D`` and ``dt_bias`` stay f32 in a bf16 model.
+``kernels.ops.ssd_scan`` (the Hopper kernel on a CUDA device, its plain
+version on the CPU). The reference path (``force_ref``: the trainer, the
+dry-run's counts, the sharded path) runs :func:`ssd_chunked`, the JAX
+model's own chunked SSD (chunks of ``cfg.ssm.chunk`` tokens, halved until
+they divide S), in f32 with the JAX model's roundings and differentiable
+by autograd; the kernel computes the same function. ``D x`` stays outside
+the scan. Decode is the single-step recurrence against a
+``[B, nh, hd, ds]`` state. ``A_log``, ``D`` and ``dt_bias`` stay f32 in a
+bf16 model.
 """
 from __future__ import annotations
 
@@ -21,8 +24,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..compat import is_dtensor
+from ..compat import acc, is_dtensor
 from ..kernels import ops as kops
+from ..roofline.analysis import count_as
 from .config import ModelConfig
 from .layers import _he, on_local_heads
 
@@ -99,6 +103,95 @@ def _tail(u: Tensor, n: int) -> Tensor:
         :, -n:]
 
 
+def chunk_len(S: int, chunk: int) -> int:
+    """The chunk length of an S-token scan: ``min(chunk, S)``, halved
+    until it divides S (the JAX models' rule for a ragged S)."""
+    Q = min(chunk, S)
+    while S % Q:
+        Q //= 2
+    return Q
+
+
+def carry_chunks(decay: Tensor, contrib: Tensor, last_contrib, last_args):
+    """The state carried across a chunked scan's chunk summaries: ``decay``
+    [B,nC,...] each chunk's total decay (broadcast over the state),
+    ``contrib`` [B,nC-1,...] each chunk's own state contribution decayed
+    to its end, but the last chunk's, which is ``last_contrib(*last_args)``
+    -> (the state entering each chunk [B,nC,...], zero for the first, and
+    the final state). The last chunk's summary feeds the final state only
+    and is counted as the sequential oracle's state update: no matmul."""
+    s = contrib.new_zeros(contrib.shape[:1] + contrib.shape[2:])
+    entering = [s]
+    for d, c in zip(decay.unbind(1), contrib.unbind(1)):
+        s = d * s + c
+        entering.append(s)
+
+    def final(s, d, *args):
+        return d * s + last_contrib(*args)
+    return torch.stack(entering, dim=1), count_as(
+        final, (s, decay[:, -1], *last_args), 0, 0)
+
+
+def _ssd_chunked(x: Tensor, dt: Tensor, la: Tensor, Bm: Tensor, Cm: Tensor,
+                 chunk: int):
+    B, S, nh, hd = x.shape
+    ds = Bm.shape[-1]
+    Q = chunk_len(S, chunk)
+    nC = S // Q
+    lq = acc(la).reshape(B, nC, Q, nh)
+    dq = acc(dt).reshape(B, nC, Q, nh)
+    xq = acc(x).reshape(B, nC, Q, nh, hd)
+    Bq = acc(Bm).reshape(B, nC, Q, ds)
+    Cq = acc(Cm).reshape(B, nC, Q, ds)
+    cums = torch.cumsum(lq, dim=2)                          # [B,nC,Q,nh]
+    # intra-chunk decay-masked scores [B,nC,Qi,Qj,nh], rounded to x's
+    # dtype as the JAX model rounds them (its dots accumulate in f32). The
+    # masked (upper) entries are exp(-inf) = 0, so no overflowing exp
+    # reaches the backward.
+    causal = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
+    diff = cums[:, :, :, None, :] - cums[:, :, None, :, :]
+    diff = torch.where(causal[:, :, None], diff,
+                       torch.full((), -torch.inf, dtype=diff.dtype,
+                                  device=x.device))
+    cb = torch.einsum("bcis,bcjs->bcij", Cq, Bq)
+    scores = acc((torch.exp(diff) * cb[..., None] * dq[:, :, None])
+                 .to(x.dtype))
+    y = torch.einsum("bcijh,bcjhp->bcihp", scores, xq)
+    # each chunk's state contribution, decayed to the chunk's end, and the
+    # state carried across them (carry_chunks)
+    wx = acc((dq * torch.exp(cums[:, :, -1:] - cums)).to(x.dtype))[..., None] \
+        * xq
+    chunk_state = torch.einsum("bcjhp,bcjs->bchps", wx[:, :-1], Bq[:, :-1])
+    chunk_decay = torch.exp(cums[:, :, -1])[..., None, None]  # [B,nC,nh,1,1]
+    entering, s = carry_chunks(
+        chunk_decay, chunk_state,
+        lambda w, b: torch.einsum("bjhp,bjs->bhps", w, b),
+        (wx[:, -1], Bq[:, -1]))
+    y_inter = torch.einsum("bcis,bchps->bcihp", Cq, entering)
+    y = y + y_inter * torch.exp(cums)[..., None]
+    return y.reshape(B, S, nh, hd), s
+
+
+def ssd_chunked(x: Tensor, dt: Tensor, la: Tensor, Bm: Tensor, Cm: Tensor,
+                chunk: int):
+    """The JAX model's chunked SSD (``repro.models.mamba2.mamba2_forward``)
+    in ``kernels.ops.ssd_scan``'s model layout: x [B,S,nh,hd]; dt, la
+    [B,S,nh] f32; Bm, Cm [B,S,ds] shared by a row's heads -> (y [B,S,nh,hd]
+    and s_final [B,nh,hd,ds], f32; f64 for f64 inputs). Chunks of
+    :func:`chunk_len` tokens: decay-masked intra-chunk scores for all
+    chunks at once, then the state carried across the chunk summaries.
+    Plain PyTorch, differentiable by autograd. Counted as the sequential
+    oracle (``kernels.ref.ssd_scan_ref``) at the same shapes: 2 hd ds
+    FLOPs a token and head in its one product (y_t = S_t C_t), and the
+    backward's one per operand that needs a gradient (C, and the state
+    if x, dt, la or Bm do)."""
+    B, S, nh, hd = x.shape
+    fwd = 2 * B * nh * S * hd * Bm.shape[-1]
+    grads = Cm.requires_grad + any(t.requires_grad for t in (x, dt, la, Bm))
+    return count_as(_ssd_chunked, (x, dt, la, Bm, Cm, chunk), fwd,
+                    fwd * grads)
+
+
 def mamba2_forward(cfg: ModelConfig, p: dict, x: Tensor,
                    force_ref: bool = False):
     """Full-sequence SSD. x [B,S,d] -> (y [B,S,d], MambaCache)."""
@@ -111,15 +204,19 @@ def mamba2_forward(cfg: ModelConfig, p: dict, x: Tensor,
     dt = torch.nn.functional.softplus(dt.float() + p["dt_bias"])  # [B,S,nh]
     la = dt * -torch.exp(p["A_log"])                               # log decay
     xh = xi.reshape(B, S, nh, hd)
+    args = (xh, dt, la, bc[..., :ds], bc[..., ds:])
     sharded = None
     if force_ref and is_dtensor(xh):  # sharded: per rank's heads
         sharded = on_local_heads(
-            lambda *a: kops.ssd_scan(*a, force_ref=True),
-            (xh, dt, la, bc[..., :ds], bc[..., ds:]), (0, 0, 0, 0, 0),
-            (2, 2, 2, None, None), ((0, 2), (0, 1)))
-    y, s_final = sharded if sharded is not None else kops.ssd_scan(
-        xh, dt, la, bc[..., :ds], bc[..., ds:], force_ref=force_ref)
-    y = y.float() + p["D"][None, None, :, None] * xh.float()
+            lambda *a: ssd_chunked(*a, cfg.ssm.chunk), args,
+            (0, 0, 0, 0, 0), (2, 2, 2, None, None), ((0, 2), (0, 1)))
+    if sharded is not None:
+        y, s_final = sharded
+    elif force_ref:
+        y, s_final = ssd_chunked(*args, cfg.ssm.chunk)
+    else:
+        y, s_final = kops.ssd_scan(*args)
+    y = acc(y) + p["D"][None, None, :, None] * acc(xh)
     y = _gated_norm(cfg, p, y.reshape(B, S, d_in).to(x.dtype), z)
     out = torch.matmul(y, p["out_proj"])
     K = cfg.ssm.d_conv

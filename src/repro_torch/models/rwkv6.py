@@ -9,13 +9,15 @@ channels, state S in R^{hd x hd}):
 with the data-dependent decay w_t = exp(-exp(w0 + LoRA(x_t))) in (0, 1)
 and the bonus u for the current token. Prefill (any batch: the
 continuous engine admits groups of equal-length prompts, one final state
-per row) runs the wkv scan through
-``kernels.ops.rwkv6_scan`` (the Hopper kernel on a CUDA device, its plain
-version on the CPU, the sequential oracle under ``force_ref``) where the
-JAX package ran its own jnp chunked scan; both compute the same function.
-Decode is the one-token recurrence, as in the JAX package (no TPU kernel
-exists for it). Channel mix is the squared-ReLU FFN with token shift.
-``w0`` and ``u`` stay f32 in a bf16 model.
+per row) runs the wkv scan through ``kernels.ops.rwkv6_scan`` (the Hopper
+kernel on a CUDA device, its plain version on the CPU). The reference path
+(``force_ref``: the trainer, the dry-run's counts, the sharded path) runs
+:func:`wkv_chunked`, the JAX model's own chunked wkv (chunks of 128
+tokens, halved until they divide S), in f32 and differentiable by
+autograd; the kernel computes the same function. Decode is the one-token
+recurrence, as in the JAX package (no TPU kernel exists for it). Channel
+mix is the squared-ReLU FFN with token shift. ``w0`` and ``u`` stay f32
+in a bf16 model.
 """
 from __future__ import annotations
 
@@ -25,8 +27,10 @@ import torch
 
 from ..compat import acc, is_dtensor
 from ..kernels import ops as kops
+from ..roofline.analysis import count_as
 from .config import ModelConfig
 from .layers import _he, on_local_heads
+from .mamba2 import carry_chunks, chunk_len
 
 Tensor = torch.Tensor
 
@@ -95,6 +99,65 @@ def _group_norm(p: dict, y: Tensor, nh: int, hd: int) -> Tensor:
     return yf * acc(p["ln_x"])
 
 
+#: the JAX model's wkv chunk length (``repro.models.rwkv6``)
+WKV_CHUNK = 128
+
+
+def _wkv_chunked(r: Tensor, k: Tensor, v: Tensor, la: Tensor, u: Tensor,
+                 chunk: int):
+    B, S, nh, hd = r.shape
+    Q = chunk_len(S, chunk)
+    nC = S // Q
+    rq, kq, vq, laq = (acc(t).reshape(B, nC, Q, nh, hd)
+                       for t in (r, k, v, la))
+    cs = torch.cumsum(laq, dim=2)                       # inclusive
+    # intra-chunk, strictly lower (the state BEFORE the current token):
+    # y_i += sum_{j<i} (r_i exp(cs_i - la_i - cs_j) . k_j) v_j
+    ri = rq * torch.exp(cs - laq)
+    kj = kq * torch.exp(-cs)
+    att = torch.einsum("bciht,bcjht->bchij", ri, kj)    # [B,c,nh,Qi,Qj]
+    strict = torch.ones(Q, Q, dtype=torch.bool, device=r.device).tril(-1)
+    att = torch.where(strict, att, torch.zeros((), dtype=att.dtype,
+                                                device=r.device))
+    y = torch.einsum("bchij,bcjht->bciht", att, vq)
+    # the bonus on the diagonal: y_i += (r_i . (u * k_i)) v_i
+    y = y + (rq * acc(u) * kq).sum(-1, keepdim=True) * vq
+    # each chunk's state contribution, decayed to the chunk's end, and the
+    # state carried across them (carry_chunks)
+    kst = kq * torch.exp(cs[:, :, -1:] - cs)
+    chunk_state = torch.einsum("bcjht,bcjhu->bchtu", kst[:, :-1],
+                               vq[:, :-1])
+    chunk_decay = torch.exp(cs[:, :, -1])[..., None]    # [B,c,nh,hd,1]
+    entering, s = carry_chunks(
+        chunk_decay, chunk_state,
+        lambda k, v: torch.einsum("bjht,bjhu->bhtu", k, v),
+        (kst[:, -1], vq[:, -1]))
+    y = y + torch.einsum("bciht,bchtu->bcihu", ri, entering)
+    return y.reshape(B, S, nh, hd), s
+
+
+def wkv_chunked(r: Tensor, k: Tensor, v: Tensor, la: Tensor, u: Tensor,
+                chunk: int = WKV_CHUNK):
+    """The JAX model's chunked wkv (``repro.models.rwkv6.rwkv6_time_mix``)
+    in ``kernels.ops.rwkv6_scan``'s model layout: r, k, v [B,S,nh,hd]; la
+    [B,S,nh,hd] f32 log decays; u [nh,hd] f32 -> (y [B,S,nh,hd] and
+    s_final [B,nh,hd,hd], f32; f64 for f64 inputs). Chunks of
+    :func:`~.mamba2.chunk_len` tokens; the decays in the JAX model's
+    arrangement (r_i exp(cs_i - la_i), k_j exp(-cs_j), cs the inclusive
+    cumulative log decay within the chunk), the strictly lower
+    intra-chunk triangle plus the bonus, then the state carried across
+    the chunk summaries. Plain PyTorch, differentiable by autograd.
+    Counted as the sequential oracle (``kernels.ref.rwkv_scan_ref``) at
+    the same shapes: 2 hd^2 FLOPs a token and head in its one product
+    (y_t = r_t (S + u k_t v_t)), and the backward's one per operand that
+    needs a gradient (r, and the state if k, v, la or u do)."""
+    B, S, nh, hd = r.shape
+    fwd = 2 * B * nh * S * hd * hd
+    grads = r.requires_grad + any(t.requires_grad for t in (k, v, la, u))
+    return count_as(_wkv_chunked, (r, k, v, la, u, chunk), fwd,
+                    fwd * grads)
+
+
 def rwkv6_time_mix(cfg: ModelConfig, p: dict, x: Tensor, prev: Tensor,
                    force_ref: bool = False):
     """x [B,S,d], prev [B,d] (token before the window).
@@ -114,14 +177,17 @@ def rwkv6_time_mix(cfg: ModelConfig, p: dict, x: Tensor, prev: Tensor,
     v = torch.matmul(xv, p["wv"]).reshape(B, S, nh, hd)
     g = torch.matmul(xg, p["wg"])
     la = _decay(p, xw).reshape(B, S, nh, hd)            # log decay, f32
+    args = (r, k, v, la, p["u"])
     sharded = None
     if force_ref and is_dtensor(r):   # sharded: per rank's heads
-        sharded = on_local_heads(
-            lambda *a: kops.rwkv6_scan(*a, force_ref=True),
-            (r, k, v, la, p["u"]), (0, 0, 0, 0, None), (2, 2, 2, 2, 0),
-            ((0, 2), (0, 1)))
-    y, s_final = sharded if sharded is not None else kops.rwkv6_scan(
-        r, k, v, la, p["u"], force_ref=force_ref)
+        sharded = on_local_heads(wkv_chunked, args, (0, 0, 0, 0, None),
+                                 (2, 2, 2, 2, 0), ((0, 2), (0, 1)))
+    if sharded is not None:
+        y, s_final = sharded
+    elif force_ref:
+        y, s_final = wkv_chunked(*args)
+    else:
+        y, s_final = kops.rwkv6_scan(*args)
     y = _group_norm(p, y, nh, hd).reshape(B, S, d)
     y = y * torch.nn.functional.silu(acc(g))
     out = torch.matmul(y.to(x.dtype), p["wo"])

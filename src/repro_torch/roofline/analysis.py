@@ -27,6 +27,12 @@ the bound is the same whichever kernel implements the step:
   masked pairs are taken back out, in the forward and the backward: the
   count is what the function needs, and no kernel can beat the compute
   term.
+  The scans' reference math is the JAX models' chunked math, whose
+  intra-chunk matmuls grow with the chunk length; the sequential
+  recurrence needs none of them, so the chunked math counts as the
+  sequential oracle at the same shapes (:func:`count_as`), in the
+  forward and the backward: the count does not depend on the chunk
+  length, and no kernel can beat the compute term there either.
 * **Bytes**: there is no compiler fusion to count after, so the memory
   term's bytes are the step's compulsory traffic, per device: each
   argument's local shard read once and each output's written once; an
@@ -243,6 +249,44 @@ def note_attention_output(masked: int, q: torch.Tensor, k: torch.Tensor,
         out.register_hook(lambda g: counter.credit_flops(n * masked))
 
 
+class _Region:
+    """The FLOPs the ops run inside :func:`count_as` count (``fwd``), and
+    those their backward will count (``bwd``: a matmul's backward takes
+    one product of its size per operand that needs a gradient)."""
+
+    def __init__(self):
+        self.fwd = 0
+        self.bwd = 0
+
+
+def count_as(fn, args: tuple, fwd: int, bwd: int):
+    """``fn(*args)``, counted as ``fwd`` FLOPs in the forward and ``bwd``
+    in the backward in place of what its ops count (0 with no counter
+    running). ``fn``'s ops that count FLOPs must be matmuls (``mm``,
+    ``bmm``), whose backward the count reckons from their operands, and
+    they must all feed its first output, which carries the gradient: the
+    backward's difference is taken out when the gradient reaches it, once
+    a backward pass, as in :func:`note_attention_output`. (An op that
+    feeds another output only, such as a scan's last chunk summary, which
+    feeds its final state, goes in a nested ``count_as`` of its own
+    around that output; a nested call's ops count there only.)"""
+    if not _COUNTERS:
+        return fn(*args)
+    counter = _COUNTERS[-1]
+    region = _Region()
+    counter._flops.regions.append(region)
+    try:
+        out = fn(*args)
+    finally:
+        counter._flops.regions.remove(region)
+    counter.credit_flops(region.fwd - fwd)
+    first = _tensors(out)[0]
+    if first.requires_grad:
+        excess = region.bwd - bwd
+        first.register_hook(lambda g: counter.credit_flops(excess))
+    return out
+
+
 #: ops that read from their first operand only the elements they return
 _GATHERS = ("aten::embedding", "aten::index", "aten::index_select",
             "aten::gather")
@@ -301,13 +345,21 @@ class _Flops(TorchDispatchMode):
         super().__init__()
         self.flops = 0
         self._prop = prop
+        self.regions = []        # the count_as calls running
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         fn = flop_registry.get(func._overloadpacket)
         if fn is not None and not self._prop.depth:
-            self.flops += fn(*args, **kwargs, out_val=out) // _split(out)
+            n = fn(*args, **kwargs, out_val=out) // _split(out)
+            self.flops += n
+            if self.regions:         # the innermost count_as running
+                grads = torch.is_grad_enabled() and sum(
+                    isinstance(a, torch.Tensor) and a.requires_grad
+                    for a in args)
+                self.regions[-1].fwd += n
+                self.regions[-1].bwd += n * grads
         return out
 
 

@@ -23,14 +23,15 @@ bf16, scalar FMAs in f32 and at widths off the 16-byte grid), head widths
 a d_ff that is no multiple of any tile, E = 2, bit-equal repeated calls,
 no host sync, and one CUDA-graph capture replayed. The scan cases cover
 both routes at decays down to -3000 a token (RWKV6) and -50 (SSD), widths
-16-64 (and 20, off the 16-byte grid), S from 1 to 200, B = 2 with the
-model's strides, each slice width forced, and the same determinism, sync
-and graph checks. The decode step as a CUDA graph: on both engines and
-every family in bf16, the replayed chunk equals the same step run
-eagerly bit for bit (tokens and cache), replays make no host sync, one
-capture serves every budget, ``LAUNCHES`` counts the replayed kernels,
-and seeded stochastic decoding is reproducible through the graph. The
-MoE: the FFN with per-expert ``rows`` at deepseek-moe-16b's and
+16-64 (and 20, off the 16-byte grid), S from 1 to 200 and 4,096, B = 2
+with the model's strides, each slice width forced, and the same
+determinism, sync and graph checks. The decode step as a CUDA graph: on
+both engines and every family in bf16, the replayed chunk equals the
+same step run eagerly bit for bit (tokens and cache), replays make no
+host sync, one capture serves every budget, ``LAUNCHES`` counts the
+replayed kernels, and seeded stochastic decoding is reproducible
+through the graph. The MoE: the FFN with per-expert ``rows`` at
+deepseek-moe-16b's and
 granite-moe-3b-a800m's expert buffers (E 64 and 40, a third of the
 experts empty) on its live rows, equal to the call without ``rows``
 there, its split counters left at zero; the MoE decode step with no host
@@ -399,6 +400,22 @@ def test_scans_batch4_match_plain(cuda_device, dtype):
     _check_scan(rwkv6_scan(*args), rwkv6_scan_plain(*args), dtype, True)
     args = _ssd_case(cuda_device, dtype, 4, 64, 112, 64, 64)
     _check_scan(ssd_scan(*args), ssd_scan_plain(*args), dtype, False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scan", ["rwkv6", "ssd"])
+def test_scans_long_prompt_match_plain(cuda_device, dtype, scan):
+    """Each scan at S 4,096 (the state carried over 64 of the kernels'
+    chunks) at rwkv6-1.6b's and zamba2-7b's widths, B = 2."""
+    reset_launches()
+    if scan == "rwkv6":
+        args = _rwkv_case(cuda_device, dtype, 2, 4096, 32, 64)
+        _check_scan(rwkv6_scan(*args), rwkv6_scan_plain(*args), dtype, True)
+    else:
+        args = _ssd_case(cuda_device, dtype, 2, 4096, 112, 64, 64)
+        _check_scan(ssd_scan(*args), ssd_scan_plain(*args), dtype, False)
+    assert LAUNCHES[f"{scan}_scan"] == 1
 
 
 @pytest.mark.cuda

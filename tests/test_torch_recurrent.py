@@ -95,12 +95,10 @@ def _close(got, want, **tol):
 
 def _fields_equal(a, b):
     """A sub-config the port leaves None is one its family never reads
-    (the JAX config carries its default there); ``chunk`` is not compared
-    because the port's SSD kernel chooses its own chunk length."""
+    (the JAX config carries its default there); ``SSMConfig.chunk``, the
+    reference math's chunk length, is compared with the rest."""
     if dataclasses.is_dataclass(b):
-        want = {k: v for k, v in dataclasses.asdict(b).items()
-                if k != "chunk"}
-        return a is None or dataclasses.asdict(a) == want
+        return a is None or dataclasses.asdict(a) == dataclasses.asdict(b)
     return a == b
 
 
@@ -225,13 +223,13 @@ def test_forward_logits_match_reference(model, S):
 
 @pytest.mark.parametrize("S", [37, 16])
 def test_reference_path_matches_kernel_path(model, S):
-    """``force_ref`` (the sequential scan oracles, the reference attention
-    and MLP) against the kernel path, the pair chip_smoke.py compares on
-    the card. Held to the kernel path rather than to the JAX model:
-    RWKV6 magnifies f32 rounding from layer to layer (chip_smoke.py's f64
-    witness measures it at full width), so on the S = 16 prompt the
-    sequential oracle and the JAX model's own chunked scan can differ by
-    just over 1e-4 at one logit though each is exact up to rounding."""
+    """``force_ref`` (the JAX models' own chunked scans, the reference
+    attention and MLP) against the kernel path, the pair chip_smoke.py
+    compares on the card. Held to the kernel path: RWKV6 magnifies f32
+    rounding from layer to layer (chip_smoke.py's f64 witness measures it
+    at full width), so two chunked evaluations that sum in other orders
+    can differ by about 1e-4 at a logit though each is exact up to
+    rounding."""
     _, _, cfg, params = model
     tokens = torch.from_numpy(
         np.random.default_rng(S).integers(0, cfg.vocab_size, (2, S)))
@@ -248,8 +246,10 @@ def _double(tree):
 def test_rwkv6_chunked_scan_is_exact_in_f64():
     """The f64 witness chip_smoke.py runs at full width: fed f64 weights,
     the RWKV6 model computes in f64, and the chunked scan (the plain
-    version, the kernel's arithmetic) meets the sequential oracle to
-    f64 rounding, so what separates the f32 evaluations is rounding."""
+    version, the kernel's arithmetic) meets the reference path (the JAX
+    model's chunked math, itself held to the sequential oracle in f64 by
+    tests/test_torch_chunked.py) to f64 rounding, so what separates the
+    f32 evaluations is rounding."""
     cfg = reduced(get_config("rwkv6-1.6b"))
     params = _double(init_params(cfg, seed=0, device="cpu"))
     tokens = torch.from_numpy(

@@ -8,7 +8,8 @@
 * Sharded runs on a 2x2 gloo mesh of four CPU processes (spawned inside
   a subprocess, as the JAX package's sharding tests run theirs): the
   sharded train step's loss and the sharded decode step's logits against
-  the unsharded port run (1e-5), the loss against the JAX package's
+  the unsharded port run (1e-5; the scan families also at S 200, their
+  chunked scans over 25 chunks), the loss against the JAX package's
   unsharded train step on the same numpy parameters (1e-5), both MoE
   dispatches against the local one and the JAX ``_moe_local`` (1e-5, the
   bar of ``tests/test_moe_ep.py``), a checkpoint restored into a sharded
@@ -197,6 +198,8 @@ ARCH_PAIRS = ["qwen3-0.6b,rwkv6-1.6b", "deepseek-moe-16b,zamba2-7b",
               "starcoder2-3b,musicgen-medium"]
 RUN_ARCHS = [a for pair in ARCH_PAIRS for a in pair.split(",")]
 B, S = 4, 16
+SCAN_ARCHS = ("rwkv6-1.6b", "zamba2-7b")
+LONG_S = 200              # both scans' chunked math at 25 chunks of 8
 
 EP_CFG = dict(arch_id="t", family="moe", n_layers=1, d_model=32, n_heads=4,
               n_kv_heads=2, d_ff=64, vocab_size=97, dtype="float32")
@@ -294,6 +297,21 @@ SCRIPT = textwrap.dedent("""
                     not p.is_replicate()
                     for t in tree_leaves(dc) if hasattr(t, "placements")
                     for p in t.placements)}
+            if "long_tokens" in d:
+                # the scans' chunked math over several chunks (S 200: 25
+                # chunks of 8 in both scans), sharded against unsharded
+                lt = torch.from_numpy(d["long_tokens"])
+                _, lm = step(TrainState(params, init_opt_state(params)),
+                             {"tokens": lt})
+                with use_mesh(mesh):
+                    _, ldm = step(TrainState(dp, init_opt_state(dp)),
+                                  {"tokens": part.distribute(lt, tok_pl,
+                                                             mesh)})
+                res["archs"][arch]["long"] = {
+                    "S": lt.shape[1] - 1, "loss": float(lm["loss"]),
+                    "sharded_loss": float(full(ldm["loss"])),
+                    "grad_norm": float(lm["grad_norm"]),
+                    "sharded_grad_norm": float(full(ldm["grad_norm"]))}
             if arch == inp["ckpt_arch"]:
                 ck = f"{tmp}/ckpt"
                 if rank == 0:
@@ -420,6 +438,9 @@ def gloo_results(tmp_path_factory):
         toks = rng.integers(0, jcfg.vocab_size, (B, S + 1)).astype(np.int32)
         jax_inputs[arch] = (jcfg, jparams, toks)
         archs[arch] = {"params": jax.device_get(jparams), "tokens": toks}
+        if arch in SCAN_ARCHS:
+            archs[arch]["long_tokens"] = np.random.default_rng(2).integers(
+                0, jcfg.vocab_size, (B, LONG_S + 1)).astype(np.int32)
     jcfg = JModelConfig(**EP_CFG, moe=JMoEConfig(**EP_MOE))
     ep_params = j_moe.init_moe(jcfg, jax.random.PRNGKey(0))
     ep_x = np.asarray(jax.random.normal(jax.random.PRNGKey(1),
@@ -473,6 +494,22 @@ def test_sharded_train_and_decode_on_debug_mesh(arch, gloo_results):
         assert abs(r["sharded_grad_norm"] - r["grad_norm"]) \
             <= 1e-5 * r["grad_norm"], r
     assert r["placements_kept"], r
+
+
+@pytest.mark.parametrize("arch", SCAN_ARCHS)
+def test_sharded_chunked_scans_match_unsharded(arch, gloo_results):
+    """The scan families' train step at S 200 (both chunked scans at 25
+    chunks of 8, each rank's batch rows and heads on local shards):
+    loss within 1e-5 and gradient norm within 1e-4 relative of the
+    unsharded run. The sharded backward sums the heads' and data
+    shards' partial gradients in another order; over RWKV6's 200 decayed
+    tokens that moves the f32 norm by 1.2e-5 of itself here, and a head
+    or a row in the wrong place moves it by its own size."""
+    r = gloo_results["archs"][arch]["long"]
+    assert r["S"] == LONG_S
+    assert abs(r["sharded_loss"] - r["loss"]) <= 1e-5, r
+    assert abs(r["sharded_grad_norm"] - r["grad_norm"]) \
+        <= 1e-4 * r["grad_norm"], r
 
 
 @pytest.mark.parametrize("arch", RUN_ARCHS)
