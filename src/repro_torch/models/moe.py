@@ -38,6 +38,14 @@ the routing; the decode step calls ``moe_apply``, which leaves it out.
 Entry points: ``moe_forward(cfg, p, x, force_ref=False) -> (y, aux)``,
 ``moe_apply(cfg, p, x, force_ref=False) -> (y, probs, experts)``.
 
+Routing counts (``count_routing``): a traced serving engine installs a
+:class:`RoutingCounts` around its prefill and its captured decode step;
+while it is installed, each layer that computes its group sizes (the
+buffer dispatch, and the CPU's sorted-rows dispatch) copies them into
+the recorder's static ``[L, steps, E]`` buffer, one device op a layer, at
+a device-side step index, so a captured step records them on every
+replay. Nothing is installed otherwise, and the layers add no op.
+
 Under a mesh ``moe_forward`` takes DTensors and runs the JAX package's
 ``shard_map`` bodies on the local shards through ``local_map``, on the
 reference math only (the sharded path takes no kernel):
@@ -59,7 +67,9 @@ reference math only (the sharded path takes no kernel):
 """
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import Optional
 
 import torch
 
@@ -140,6 +150,51 @@ def _expert_ranks(n_experts: int, idx: Tensor) -> tuple:
     return flat_e, pos, hit.sum(0, dtype=torch.int32)
 
 
+class RoutingCounts:
+    """Pairs per expert of each MoE layer of a forward or a decode step:
+    ``counts [L, steps, E]`` int32 on the device, the layers' group sizes
+    at row ``step`` (a 0-d device index, advanced by the caller between
+    steps; None: row 0). Allocated once and written in place."""
+
+    def __init__(self, n_layers: int, n_experts: int, device,
+                 steps: int = 1, step: Optional[Tensor] = None):
+        self.counts = torch.zeros((n_layers, steps, n_experts),
+                                  dtype=torch.int32, device=device)
+        self.step = step
+        self.layer = 0
+
+    def note(self, group_sizes: Tensor) -> None:
+        row = self.counts[self.layer]
+        if self.step is None:
+            row[0].copy_(group_sizes)
+        else:
+            row.index_copy_(0, self.step.reshape(1), group_sizes[None])
+        self.layer += 1
+
+
+_ROUTING: list = []
+
+
+@contextlib.contextmanager
+def count_routing(recorder: Optional[RoutingCounts]):
+    """Install ``recorder`` for the MoE layers run inside (its layer
+    count from 0); None installs nothing."""
+    if recorder is None:
+        yield
+        return
+    recorder.layer = 0
+    _ROUTING.append(recorder)
+    try:
+        yield
+    finally:
+        _ROUTING.pop()
+
+
+def _note_routing(group_sizes: Tensor) -> None:
+    if _ROUTING:
+        _ROUTING[-1].note(group_sizes)
+
+
 def _moe_dense(cfg: ModelConfig, p: dict, x2d: Tensor, w: Tensor,
                idx: Tensor) -> Tensor:
     """Every expert on every token, combined with the top-k gates."""
@@ -162,6 +217,7 @@ def _moe_buffered(cfg: ModelConfig, p: dict, x2d: Tensor, w: Tensor,
     T, k = idx.shape
     d, E = x2d.shape[-1], cfg.moe.n_experts
     flat_e, pos, group_sizes = _expert_ranks(E, idx)
+    _note_routing(group_sizes)
     keep = pos < C
     slot = flat_e * C + pos                     # row of the flat buffer
     # a dropped pair writes to a spare row past the buffer and reads pair
@@ -177,13 +233,18 @@ def _moe_buffered(cfg: ModelConfig, p: dict, x2d: Tensor, w: Tensor,
     return (y * wk[:, None]).view(T, k, d).sum(1)
 
 
+def capacity(cfg: ModelConfig, T: int) -> int:
+    """The capacity dispatch's rows an expert over ``T`` tokens:
+    ``C = max(1, int(T k cf / E))``, from static shapes."""
+    m = cfg.moe
+    return max(1, int(T * m.top_k * m.capacity_factor / m.n_experts))
+
+
 def _moe_capacity(cfg: ModelConfig, p: dict, x2d: Tensor, w: Tensor,
                   idx: Tensor, force_ref: bool = False) -> Tensor:
     """GShard/Switch-style capacity dispatch, dropping each expert's pairs
-    past ``C = max(1, int(T k cf / E))`` (C from static shapes)."""
-    m = cfg.moe
-    T, k = idx.shape
-    C = max(1, int(T * k * m.capacity_factor / m.n_experts))
+    past ``capacity(cfg, T)``."""
+    C = capacity(cfg, idx.shape[0])
     return _moe_buffered(cfg, p, x2d, w, idx, C, force_ref=force_ref)
 
 
@@ -202,6 +263,7 @@ def _moe_ragged(cfg: ModelConfig, p: dict, x2d: Tensor, w: Tensor,
     if not force_ref and x2d.device.type != "cpu":
         return _moe_buffered(cfg, p, x2d, w, idx, T)
     flat_e, _, group_sizes = _expert_ranks(cfg.moe.n_experts, idx)
+    _note_routing(group_sizes)
     order = torch.argsort(flat_e, stable=True)
     y = ref.grouped_ffn_ref(x2d[order // k], p["w_gate"], p["w_up"],
                             p["w_down"], group_sizes)

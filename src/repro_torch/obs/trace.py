@@ -13,7 +13,22 @@ one trace as separate processes:
   decode chunks), recorded by :meth:`Tracer.span` around real work. On a
   CUDA device a host timestamp taken after a launch marks the enqueue,
   not the work; the engines' spans therefore end at a host read or a
-  synchronisation.
+  synchronisation. A span yields its args dict, so that values known only
+  at its close (device times read after its synchronisation, counts read
+  back) become its args.
+
+The continuous engine's wall spans (``serving/continuous.py``):
+``continuous.admit`` (args ``rows``, ``S``) and
+``continuous.decode_chunk`` (``chunk``, ``occupancy``,
+``tokens_in_use``), as the JAX package's; ``continuous.admit.read``
+(the first tokens' read) inside the first; ``continuous.chunk.prepare``
+before the second and ``continuous.chunk.retire`` after it; and right
+after each parent, ``continuous.admit.stats`` (MoE: ``pairs``, ``kept``,
+``experts_hit``) and ``continuous.chunk.stats`` (CUDA: ``first_step_ms``,
+``step_ms`` from CUDA events; MoE: ``pairs``, ``experts_hit``), whose
+args are what the tracer's reads after the parent's close bring back.
+The MoE counts come from the routing hook of ``models/moe.py``
+(``count_routing``).
 
 Every event that belongs to a request carries ``args={"rid": ...}`` so the
 span tree can be validated programmatically (:func:`spans_by_request`,
@@ -134,17 +149,22 @@ class Tracer:
     @contextmanager
     def span(self, name: str, *, tid: int = 0, pid: int = WALL_PID,
              cat: str = "", args=None):
-        """Wall-clock span around real work (prefill, admission, chunk)."""
+        """Wall-clock span around real work (prefill, admission, chunk).
+
+        Yields the span's args dict (a copy of ``args``): what the body
+        puts there is recorded at the close, so a span can carry values
+        known only after its host read (device times, counts)."""
         t0 = self._wall_us()
+        out = dict(args or {})
         try:
-            yield self
+            yield out
         finally:
             ev = {"ph": "X", "name": name, "pid": pid, "tid": tid,
                   "ts": t0, "dur": self._wall_us() - t0}
             if cat:
                 ev["cat"] = cat
-            if args:
-                ev["args"] = dict(args)
+            if out:
+                ev["args"] = out
             self._push(ev)
 
     # ------------------------------------------------------------- exporting
@@ -176,7 +196,7 @@ class NullTracer(Tracer):
 
     @contextmanager
     def span(self, *a, **k):
-        yield self
+        yield {}
 
     def _push(self, ev):
         pass

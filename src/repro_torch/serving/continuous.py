@@ -57,10 +57,39 @@ over the dequantised cache with the slot decode kernel, paged or not.
 Hooks, as the JAX package's: a ``tracer`` (``obs.trace.Tracer``) records
 wall spans ``continuous.admit`` (rows, padded length) and
 ``continuous.decode_chunk`` (chunk, occupancy, tokens in use), each
-ending at its host read; ``faults`` (``faults.FaultInjector``) gets
-``on_decode_step(self)`` at the top of every ``step`` and ``step_chunk``,
-even while idle, so a fault such as ``PoolPressure`` reserves and
-returns pool blocks on the host between replays. An external
+ending at its host read. The port adds phase spans on the wall clock:
+
+* ``continuous.admit.read`` inside ``continuous.admit``, its last part:
+  the blocking read of the first tokens, i.e. the device's tail after
+  the host has enqueued the prefill (on the paged pool no host-to-device
+  copy follows the prefill, so nothing in the enqueueing waits for it);
+* ``continuous.chunk.prepare`` before ``continuous.decode_chunk`` (block
+  growth, the table's and the inputs' host-to-device copies) and
+  ``continuous.chunk.retire`` after it (the tokens' bookkeeping,
+  retirements and block frees);
+* ``continuous.admit.stats`` and ``continuous.chunk.stats`` right after
+  their parents, which they leave as the JAX engine's: the tracer's own
+  reads, whose results are their args. On a MoE backbone
+  ``continuous.admit.stats`` holds ``pairs``, ``kept`` (under the
+  capacity) and ``experts_hit`` ((layer, expert) pairs with a pair
+  routed), and ``continuous.chunk.stats`` ``pairs`` (``max_slots`` x k x
+  layers x steps, empty rows' included) and ``experts_hit`` over the
+  (step, layer, expert) triples. On a CUDA device a chunk of two or more
+  steps that replays its graph records one CUDA event before the first
+  replay and one after each, and ``continuous.chunk.stats`` gives
+  ``first_step_ms`` (first event to second: the first step and the
+  device's wait for its launch) and ``step_ms`` (second to last over
+  ``chunk - 1``: a step fed back to back) on the device's clock.
+
+The MoE counts come from ``models.moe.count_routing``, installed around
+the prefill and inside the captured step only when the engine holds a
+tracer; without one no event, count buffer, stats span or extra read
+exists, and the captured step is the same.
+
+``faults`` (``faults.FaultInjector``) gets ``on_decode_step(self)`` at
+the top of every ``step`` and ``step_chunk``, even while idle, so a
+fault such as ``PoolPressure`` reserves and returns pool blocks on the
+host between replays. An external
 reservation only shrinks what admission sees (back-pressure); the device
 block table is copied only when a slot's blocks changed.
 
@@ -89,17 +118,18 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from contextlib import nullcontext
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..models import decode_step, fold_sample, forward, init_decode_cache
+from ..models import moe
 from ..models.attention import (KVCache, QuantKVCache, init_paged_cache,
                                 kv_fields, seed_slots)
 from ..models.config import ModelConfig
 from ..obs import graph_hooks
+from ..obs.trace import NULL_TRACER
 
 
 @dataclasses.dataclass
@@ -251,6 +281,11 @@ class ContinuousBatchingEngine:
         self._inputs = torch.zeros((3, max_slots), dtype=torch.long,
                                    device=self.device)
         self._outs: dict = {}
+        # traced only: per chunk its CUDA events and the routing counts of
+        # its captured step, and the prefill's routing counts
+        self._events: dict = {}
+        self._routing: dict = {}
+        self._prefill_counts = None
 
     # ------------------------------------------------------------ internals
     def _can_page(self) -> bool:
@@ -290,18 +325,30 @@ class ContinuousBatchingEngine:
                 torch.zeros((chunk, self.max_slots), dtype=torch.long,
                             device=self.device),
                 torch.zeros((), dtype=torch.long, device=self.device))
+            if self.tracer is not None and self._counts_routing():
+                self._routing[chunk] = moe.RoutingCounts(
+                    self.cfg.n_layers, self.cfg.moe.n_experts, self.device,
+                    steps=chunk, step=self._outs[chunk][1])
         out, idx = self._outs[chunk]
         token, rids, gidx = self._inputs
+        routing = self._routing.get(chunk)
 
         def step():
-            res = decode_step(self.cfg, self.params, token[:, None],
-                              self.cache)
+            with moe.count_routing(routing):
+                res = decode_step(self.cfg, self.params, token[:, None],
+                                  self.cache)
             nxt = self._next_tokens(res.logits[:, 0], rids, gidx)
             token.copy_(nxt)
             out.index_copy_(0, idx.reshape(1), nxt[None])
             gidx.add_(1)
             idx.add_(1).remainder_(chunk)
         return step
+
+    def _counts_routing(self) -> bool:
+        """Whether the backbone's MoE layers give group sizes to count
+        (every dispatch but the dense oracle)."""
+        return (self.cfg.backbone_kind == "moe"
+                and self.cfg.moe.impl != "dense")
 
     def _rows(self, values, dtype=torch.int64) -> torch.Tensor:
         """A per-slot host list as a device tensor (host-to-device only)."""
@@ -482,11 +529,19 @@ class ContinuousBatchingEngine:
         lengths = np.asarray([len(req[1]) for _, req in group],
                              dtype=np.int64)
         S = int(lengths.max())
-        ctx = (self.tracer.span("continuous.admit", cat="engine",
-                                args={"rows": len(group), "S": S})
-               if self.tracer is not None else nullcontext())
-        with ctx:
-            firsts = self._prefill_insert(group, lengths, S)
+        traced = self.tracer is not None
+        tr = self.tracer if traced else NULL_TRACER
+        routing = self._prefill_routing() if traced else None
+        with tr.span("continuous.admit", cat="engine",
+                     args={"rows": len(group), "S": S}):
+            with moe.count_routing(routing):
+                firsts = self._prefill_insert(group, lengths, S)
+            with tr.span("continuous.admit.read", cat="engine"):
+                firsts = graph_hooks.to_host(firsts, "continuous.admit")
+        if traced:
+            with tr.span("continuous.admit.stats", cat="engine") as args:
+                if routing is not None:
+                    args.update(self._prefill_stats(routing, len(group), S))
         for r, (slot, (rid, _, budget, max_extra)) in enumerate(group):
             first = int(firsts[r])
             self.slots[slot] = Slot(
@@ -494,10 +549,40 @@ class ContinuousBatchingEngine:
                 tokens=[first], last_token=first,
                 prompt_len=int(lengths[r]))
 
+    def _prefill_routing(self) -> Optional[moe.RoutingCounts]:
+        """The prefill's routing counts ``[L, 1, E]`` (MoE only), made
+        once."""
+        if not self._counts_routing():
+            return None
+        if self._prefill_counts is None:
+            self._prefill_counts = moe.RoutingCounts(
+                self.cfg.n_layers, self.cfg.moe.n_experts, self.device)
+        return self._prefill_counts
+
+    def _prefill_stats(self, routing: moe.RoutingCounts, rows: int,
+                       S: int) -> dict:
+        """``continuous.admit.stats``' args from a prefill of ``rows``
+        prompts padded to ``S``: its pairs routed, kept under the
+        capacity, and the (layer, expert) pairs hit."""
+        counts = graph_hooks.to_host(routing.counts, "continuous.routing")
+        T, m = rows * S, self.cfg.moe
+        # a one-token prompt and the ragged dispatch drop nothing
+        C = moe.capacity(self.cfg, T) if m.impl == "capacity" and S > 1 \
+            else T
+        return {"pairs": T * m.top_k * counts.shape[0],
+                "kept": int(np.minimum(counts, C).sum()),
+                "experts_hit": int(np.count_nonzero(counts))}
+
     def _prefill_insert(self, group, lengths: np.ndarray,
-                        S: int) -> np.ndarray:
+                        S: int) -> torch.Tensor:
         """Prefill the group's prompts right-padded to ``S``, insert their
-        K/V into the cache, and return the first tokens (one host read)."""
+        K/V into the cache, and return the first tokens (on the device).
+
+        The host's rows go to the device before ``forward``: such a copy
+        waits for the stream, so none may follow the enqueued prefill,
+        and on the paged pool the caller's read of the first tokens
+        waits for the device's tail alone (the slot cache's insert still
+        copies its seed positions after it)."""
         tokens = np.zeros((len(group), S), dtype=np.int64)
         for r, (_, req) in enumerate(group):
             tokens[r, :lengths[r]] = req[1]
@@ -507,22 +592,22 @@ class ContinuousBatchingEngine:
             for slot, (_, prompt, _, _) in group:
                 self._grow_slot_blocks(slot, len(prompt))
             self._sync_tables()
+        lengths_d = self._rows(lengths)
+        slot_idx = self._rows(slots)
+        rids = self._rows([req[0] for _, req in group])
         out = forward(self.cfg, self.params,
                       torch.from_numpy(tokens).to(self.device),
                       return_cache=True)
-        lengths_d = self._rows(lengths)
-        slot_idx = self._rows(slots)
         last = out.logits[torch.arange(len(group), device=self.device),
                           lengths_d - 1]                          # [k, V]
         firsts = self._next_tokens(
-            last, self._rows([req[0] for _, req in group]),
-            torch.zeros_like(lengths_d))            # first token: g = 0
+            last, rids, torch.zeros_like(lengths_d))   # first token: g = 0
         lengths_d = lengths_d.to(torch.int32)
         if self.paged:
             self._insert_paged(*out.cache["layers"], slot_idx, lengths_d)
         else:
             self._insert(out.cache, slot_idx, lengths_d)
-        return graph_hooks.to_host(firsts, "continuous.admit")
+        return firsts
 
     @property
     def n_active(self) -> int:
@@ -593,37 +678,75 @@ class ContinuousBatchingEngine:
         chunk = self.chunk if chunk is None else chunk
         if self.n_active == 0 or chunk <= 0:
             return []
-        if self.paged:
-            self._ensure_blocks(chunk)
-            self._sync_tables()
-        # the slots' state into the static inputs in one host-to-device
-        # copy, before any replay (empty rows decode throwaway tokens)
-        self._inputs.copy_(torch.tensor(
-            [[s.last_token if s else 0 for s in self.slots],
-             [s.rid if s else 0 for s in self.slots],
-             [s.generated if s else 0 for s in self.slots]],
-            dtype=torch.long))
-        step = self._chunk_step(chunk)
-        ctx = (self.tracer.span("continuous.decode_chunk", cat="engine",
-                                args={"chunk": chunk,
-                                      "occupancy": self.n_active,
-                                      "tokens_in_use": self.tokens_in_use})
-               if self.tracer is not None else nullcontext())
-        with ctx:
-            for _ in range(chunk):
+        traced = self.tracer is not None
+        tr = self.tracer if traced else NULL_TRACER
+        with tr.span("continuous.chunk.prepare", cat="engine"):
+            if self.paged:
+                self._ensure_blocks(chunk)
+                self._sync_tables()
+            # the slots' state into the static inputs in one host-to-device
+            # copy, before any replay (empty rows decode throwaway tokens)
+            self._inputs.copy_(torch.tensor(
+                [[s.last_token if s else 0 for s in self.slots],
+                 [s.rid if s else 0 for s in self.slots],
+                 [s.generated if s else 0 for s in self.slots]],
+                dtype=torch.long))
+            fresh = chunk not in self._outs      # this chunk captures
+            step = self._chunk_step(chunk)
+        events = self._chunk_events(chunk, fresh) if traced else None
+        with tr.span("continuous.decode_chunk", cat="engine",
+                     args={"chunk": chunk, "occupancy": self.n_active,
+                           "tokens_in_use": self.tokens_in_use}):
+            if events is not None:
+                events[0].record()
+            for i in range(chunk):
                 self._graphs.run(chunk, step)
+                if events is not None:
+                    events[i + 1].record()
             toks = graph_hooks.to_host(self._outs[chunk][0],
                                        self._graphs.label)   # [chunk, slots]
-        finished = []
-        for i, s in enumerate(self.slots):
-            if s is None:
-                continue
-            n_take = min(chunk, s.budget + s.max_extra - s.generated)
-            if n_take > 0:
-                s.tokens.extend(int(t) for t in toks[:n_take, i])
-                s.generated += n_take
-                s.last_token = int(toks[n_take - 1, i])
-            if s.generated >= s.budget + s.max_extra:
-                finished.append(s)
-                self._retire_slot(i)
+        if traced:
+            with tr.span("continuous.chunk.stats", cat="engine") as args:
+                args.update(self._chunk_stats(chunk, events))
+        with tr.span("continuous.chunk.retire", cat="engine"):
+            finished = []
+            for i, s in enumerate(self.slots):
+                if s is None:
+                    continue
+                n_take = min(chunk, s.budget + s.max_extra - s.generated)
+                if n_take > 0:
+                    s.tokens.extend(int(t) for t in toks[:n_take, i])
+                    s.generated += n_take
+                    s.last_token = int(toks[n_take - 1, i])
+                if s.generated >= s.budget + s.max_extra:
+                    finished.append(s)
+                    self._retire_slot(i)
         return finished
+
+    def _chunk_events(self, chunk: int, fresh: bool) -> Optional[list]:
+        """On a CUDA device, the ``chunk + 1`` timing events of a chunk of
+        two or more steps that replays its graph, one set a chunk size;
+        else None."""
+        if self.device.type != "cuda" or chunk < 2 or fresh:
+            return None
+        if chunk not in self._events:
+            self._events[chunk] = [torch.cuda.Event(enable_timing=True)
+                                   for _ in range(chunk + 1)]
+        return self._events[chunk]
+
+    def _chunk_stats(self, chunk: int, events: Optional[list]) -> dict:
+        """``continuous.chunk.stats``' args: the device's step times from
+        the chunk's events (complete: its read synchronised) and the
+        routing counts of its steps."""
+        out = {}
+        if events is not None:
+            out["first_step_ms"] = events[0].elapsed_time(events[1])
+            out["step_ms"] = (events[1].elapsed_time(events[chunk])
+                              / (chunk - 1))
+        routing = self._routing.get(chunk)
+        if routing is not None:
+            counts = graph_hooks.to_host(routing.counts, "continuous.routing")
+            out.update(pairs=(self.max_slots * self.cfg.moe.top_k
+                              * counts.shape[0] * chunk),
+                       experts_hit=int(np.count_nonzero(counts)))
+        return out

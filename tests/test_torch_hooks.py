@@ -548,6 +548,17 @@ def test_hooked_server_metrics_and_trace_match(hooked):
     assert snap["server.shed"] == snap["admission.shed"] > 0
     assert snap["server.requests"] == len(t_srv.completed)
     tc, jc = t_tr.to_chrome(), j_tr.to_chrome()
+    # the port's engine also records phase spans inside and between the
+    # JAX engine's two (held by tests/test_torch_engine_trace.py): its
+    # trace is compared with theirs left out
+    def wall(trace):
+        return [(ev["name"], ev.get("args")) for ev in trace["traceEvents"]
+                if ev.get("pid") == 2 and ev["ph"] == "X"]
+    names = {n for n, _ in wall(jc)}
+    assert names == {"continuous.admit", "continuous.decode_chunk"}
+    tc = {**tc, "traceEvents": [
+        ev for ev in tc["traceEvents"] if ev.get("pid") != 2
+        or ev["ph"] != "X" or ev["name"] in names]}
     rids = [c.rid for c in t_srv.completed]
     assert ttrace.validate_request_trees(tc, rids) == \
         jtrace.validate_request_trees(jc, rids)
@@ -555,12 +566,7 @@ def test_hooked_server_metrics_and_trace_match(hooked):
     assert virtual == [ev for ev in _no_wall_clock(jc)
                        if ev.get("pid") != 2]
     # the engines' wall spans: the same names and arguments in order
-    def wall(trace):
-        return [(ev["name"], ev.get("args")) for ev in trace["traceEvents"]
-                if ev.get("pid") == 2 and ev["ph"] == "X"]
     assert wall(tc) == wall(jc)
-    names = {n for n, _ in wall(tc)}
-    assert names == {"continuous.admit", "continuous.decode_chunk"}
     assert len(stream.queries) == 24
 
 
