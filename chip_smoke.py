@@ -34,7 +34,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    zamba2-7b's G 1, hd 112, slot decode at B 8 over 32,768 slots at
    both (and with a dominant slot in the last split), the FFN at T
    65,536 at both widths, long_500k's ring of 8,192, and both scans at
-   B 2 x S 32,768),
+   B 2 x S 32,768; the MoE's pair ranks (``moe_ranks``, bit-equal to
+   the plain version, the one-hot's cumulative count it replaced) at
+   deepseek-moe-16b's E 64 top-6 over 384, 3,072 and 15,000 pairs and
+   granite-moe-3b-a800m's E 40 top-8 over 512, ranks alone, with the
+   prefill capacity's buffer rows and at decode's C = T),
    with the maximum error beside its
    tolerance (for bf16 decode, per slot, in ulps of the slot's outputs;
    for the scans also the final state's, and their plans: channel slices
@@ -179,7 +183,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (ROUTING_REASON); phase 6 in bf16 at full width and depth (the FFN
    launched with per-expert rows, once for the routed and, on deepseek,
    once for the shared experts a layer, each prefill and replayed step,
-   counted exactly; one eager decode step under
+   and the pair ranks' kernel once a layer each prefill and replayed
+   step, counted exactly; one eager decode step under
    torch.cuda.set_sync_debug_mode("error"), so no op reads the host;
    the eager-vs-graph pin), and for deepseek the continuous serve on the
    slot and on the paged engine on the same weights (admissions one
@@ -1192,7 +1197,60 @@ def kernel_cases(dev, flush):
     # B 2 x S 32,768, the state carried over 512 of the kernels' chunks
     scan_cases(torch.bfloat16, DIST_BATCH["prefill_32k"], DIST_S,
                main=False, reps=DIST_KERNEL_REPS)
+    ranks_rows, summary["moe_ranks"] = moe_ranks_cases(dev, flush)
+    rows += ranks_rows
     return rows, summary
+
+
+#: (E, top-k, T) of the pair ranks' rows: a 64-row decode step, a 512- and
+#: a 2,500-token prompt of deepseek-moe-16b, a 64-row step of granite
+MOE_RANKS_SHAPES = ((DS_E, DS_K, 64), (DS_E, DS_K, 512), (DS_E, DS_K, 2500),
+                    (GR_E, GR_K, 64))
+
+
+def moe_ranks_cases(dev, flush) -> tuple:
+    """The pair ranks' kernel against its plain version (the one-hot's int64
+    cumulative count, which the dispatch ran before the kernel), each
+    token routed to k distinct experts at random: ranks alone, with a
+    capacity's buffer rows (``C = int(T k 1.25 / E)``, the prefill's) and
+    at ``C = T`` (decode's dropless buffer). Bit-equal, or the run fails.
+    The bound: the experts read and the ranks (and rows) written once, at
+    HBM speed. Returns (rows, the summary's row: deepseek's decode step,
+    E 64 top-6 over 64 rows at C 64, the call of every MoE layer a
+    step)."""
+    from repro_torch.kernels import moe_ranks
+
+    gen = torch.Generator().manual_seed(2)
+    rows, main = [], None
+    for E, k, T in MOE_RANKS_SHAPES:
+        idx = torch.stack([torch.randperm(E, generator=gen)[:k]
+                           for _ in range(T)]).to(dev)
+        n = T * k
+        for C in (0, max(1, int(T * k * 1.25 / E)), T):
+            got = moe_ranks.moe_ranks(idx, E, C)
+            want = moe_ranks.moe_ranks_plain(idx, E, C)
+            err = max((a - b).abs().max().item() for a, b in zip(got, want)
+                      if b is not None)
+            nbytes = 8 * n * (2 + (2 if C else 0)) + 4 * E
+            row = {"name": "moe_ranks",
+                   "case": f"E={E} top-{k} T={T}: {n} pairs"
+                           + (f", rows at C={C}" if C else ", ranks alone"),
+                   "dtype": "int64", "max_abs_err": float(err),
+                   "equal": err == 0,
+                   "ms": median_ms(lambda: moe_ranks.moe_ranks(idx, E, C),
+                                   flush),
+                   "plain_ms": median_ms(
+                       lambda: moe_ranks.moe_ranks_plain(idx, E, C), flush),
+                   "library_ms": None, "library_one_call": False,
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "bound_by": "bytes"}
+            print(json.dumps(row))
+            rows.append(row)
+            check(err == 0, f"moe_ranks {row['case']}: not equal to the "
+                            f"plain version (max diff {err})")
+            if (E, k, T, C) == (DS_E, DS_K, 64, 64):
+                main = row
+    return rows, main
 
 
 def _greedy_run(cfg, params, prompt, force_ref, teacher=None,
@@ -1772,6 +1830,9 @@ def serve_phase(dev, arch: str, kernels: tuple, mode: str = "virtual",
         # routed (+ shared) a layer, each prefill and replayed step
         out["fused_ffn_expected"] = moe_ffn_per_layer(cfg) * cfg.n_layers \
             * (graph["steps"] + timers["prefills"])
+        # the pair ranks: one a layer, each prefill and replayed step
+        out["moe_ranks_expected"] = cfg.n_layers * (graph["steps"]
+                                                    + timers["prefills"])
     print(json.dumps(out))
     for name in kernels:
         check(launches.get(name, 0) > 0,
@@ -1783,6 +1844,10 @@ def serve_phase(dev, arch: str, kernels: tuple, mode: str = "virtual",
               f"{arch} serve: fused_ffn launched "
               f"{launches.get('fused_ffn', 0)} times, expected "
               f"{out['fused_ffn_expected']}")
+        check(launches.get("moe_ranks", 0) == out["moe_ranks_expected"],
+              f"{arch} serve: moe_ranks launched "
+              f"{launches.get('moe_ranks', 0)} times, expected "
+              f"{out['moe_ranks_expected']}")
     check(graph["captures"] == 1 and graph["host_reads_per_chunk"] == 1,
           f"{arch} serve: decode graph {graph}")
     for name, n in decode_launches_expected(cfg, graph["steps"]).items():
@@ -4418,6 +4483,9 @@ REPLACES = {
                    "src/repro/kernels/rwkv6_scan.py:73"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:77"),
+    # no TPU kernel: the capacity dispatch's stable argsort and its ranks
+    "moe_ranks": ("src/repro_torch/csrc/moe_ranks.cu",
+                  "src/repro/models/moe.py:105"),
 }
 
 
@@ -4674,11 +4742,12 @@ def main(argv=None) -> int:
             row["launches_sweeps"] = swept[row["name"]]
     # each kernel's launches on the path that runs it: the slot kernels on
     # qwen3's DecodeEngine serve, the paged kernel on the continuous serve,
-    # each scan on its family's serve
+    # each scan on its family's serve, the pair ranks on deepseek-moe-16b's
     launches = {**served["launches"], "paged_decode_attention":
                 continuous["launches"]["paged_decode_attention"],
                 "rwkv6_scan": by_path["rwkv6-1.6b serve"]["rwkv6_scan"],
-                "ssd_scan": by_path["zamba2-7b serve"]["ssd_scan"]}
+                "ssd_scan": by_path["zamba2-7b serve"]["ssd_scan"],
+                "moe_ranks": by_path["deepseek-moe-16b serve"]["moe_ranks"]}
 
     kernels = []
     for name, (source, replaces) in REPLACES.items():

@@ -27,6 +27,8 @@ from .decode_attention import paged_decode_attention as _paged
 from .decode_attention import paged_gather
 from .flash_attention import flash_attention as _flash
 from .fused_ffn import fused_ffn as _ffn
+from .moe_ranks import moe_ranks as _ranks
+from .moe_ranks import moe_ranks_plain
 from .rwkv6_scan import rwkv6_scan as _rwkv
 from .ssd_scan import ssd_scan as _ssd
 
@@ -108,6 +110,17 @@ def fused_ffn(x, wg, wu, wd, *, rows: Tensor | None = None,
     if force_ref:
         return ref.fused_ffn_ref(x, wg, wu, wd)
     return _ffn(x, wg, wu, wd, rows)
+
+
+def moe_ranks(idx: Tensor, n_experts: int, capacity: int = 0, *,
+              force_ref: bool = False) -> tuple:
+    """idx [T, k] int64 -> (pos [T k] int64, sizes [E] int32, rows_in,
+    rows_out [T k] int64 or None): each pair's rank in its expert, the
+    pairs per expert and, with a capacity, its buffer rows
+    (``kernels/moe_ranks.py``). ``force_ref`` runs the plain version."""
+    if force_ref:
+        return moe_ranks_plain(idx, n_experts, capacity)
+    return _ranks(idx, n_experts, capacity)
 
 
 def rwkv6_scan(r: Tensor, k: Tensor, v: Tensor, la: Tensor, u: Tensor, *,

@@ -26,9 +26,12 @@ dispatches of the JAX package:
 Decode (S == 1) is dropless: ``capacity`` turns into ``ragged`` there, as
 in the JAX package (so a one-token prompt's prefill is ragged too).
 
-The (token, slot) ranks come from a cumulative count of a one-hot over the
-experts, not from a sort, and the group sizes from its sum (``bincount``
-on the card would read its maximum back to the host). The outputs are
+The (token, slot) ranks, the group sizes and each pair's buffer rows come
+from one launch of the ``moe_ranks`` kernel (``kernels/moe_ranks.py``),
+which counts each expert's pairs in flat order, without a sort and with
+no host read (``bincount`` on the card would read its maximum back to the
+host); on the CPU and under ``force_ref`` from its plain version, a
+cumulative count of a one-hot over the experts. The outputs are
 combined without atomics: each pair's output is gathered back to
 ``[T, k, d]`` and summed over k in slot order, so two runs of a step (the
 eager one and its replayed graph) give the same bits. ``moe_forward``
@@ -141,13 +144,10 @@ def _aux_loss(cfg: ModelConfig, probs: Tensor, idx: Tensor) -> Tensor:
 def _expert_ranks(n_experts: int, idx: Tensor) -> tuple:
     """For the pairs in flat order ``t k + j``: (expert [T k], rank among
     that expert's pairs [T k], pairs per expert [E] int32), with no host
-    read."""
-    flat_e = idx.reshape(-1)
-    hit = (flat_e[:, None] == torch.arange(n_experts, device=idx.device)) \
-        .to(torch.int32)                                       # [T k, E]
-    before = torch.cumsum(hit, 0) - hit
-    pos = before.gather(1, flat_e[:, None])[:, 0]
-    return flat_e, pos, hit.sum(0, dtype=torch.int32)
+    read: the ranks' plain version, as its one caller runs only on the CPU
+    or under ``force_ref``."""
+    pos, sizes, _, _ = kops.moe_ranks_plain(idx, n_experts)
+    return idx.reshape(-1), pos, sizes
 
 
 class RoutingCounts:
@@ -216,20 +216,18 @@ def _moe_buffered(cfg: ModelConfig, p: dict, x2d: Tensor, w: Tensor,
     kept output gathered back to its pair, weighted, and summed over k."""
     T, k = idx.shape
     d, E = x2d.shape[-1], cfg.moe.n_experts
-    flat_e, pos, group_sizes = _expert_ranks(E, idx)
-    _note_routing(group_sizes)
-    keep = pos < C
-    slot = flat_e * C + pos                     # row of the flat buffer
     # a dropped pair writes to a spare row past the buffer and reads pair
     # 0's row (rank 0 < C: always kept), so no unwritten row is read
+    _, group_sizes, rows_in, rows_out = kops.moe_ranks(
+        idx, E, C, force_ref=force_ref)
+    _note_routing(group_sizes)
     buf = x2d.new_zeros(E * C + 1, d)
-    buf.index_copy_(0, torch.where(keep, slot, E * C),
-                    x2d[:, None].expand(T, k, d).reshape(T * k, d))
+    buf.index_copy_(0, rows_in, x2d[:, None].expand(T, k, d).reshape(T * k, d))
     y = kops.fused_ffn(buf[:E * C].view(E, C, d), p["w_gate"], p["w_up"],
                        p["w_down"], rows=group_sizes.clamp(max=C),
                        force_ref=force_ref)
-    y = y.reshape(E * C, d).index_select(0, torch.where(keep, slot, slot[0]))
-    wk = torch.where(keep, w.reshape(-1), torch.zeros_like(w.reshape(-1)))
+    y = y.reshape(E * C, d).index_select(0, rows_out)
+    wk = torch.where(rows_in < E * C, w.reshape(-1), 0)
     return (y * wk[:, None]).view(T, k, d).sum(1)
 
 

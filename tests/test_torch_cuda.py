@@ -35,7 +35,12 @@ deepseek-moe-16b's and
 granite-moe-3b-a800m's expert buffers (E 64 and 40, a third of the
 experts empty) on its live rows, equal to the call without ``rows``
 there, its split counters left at zero; the MoE decode step with no host
-sync; reduced deepseek and granite through the replayed chunk. The VLM
+sync; reduced deepseek and granite through the replayed chunk; the pair
+ranks' kernel bit-equal to its plain version (E 6 to 64, 1 to 262,144
+pairs, with and without a capacity; more than 256 experts refused), the
+decode dispatch replayed in a CUDA graph with new routings equal to its
+eager calls, and, under the profiler, the ranks kernel in a captured
+decode step and a 2,048-token prefill with no ATen scan. The VLM
 and audio shapes: flash over llava-next-mistral-7b's 1152-row prefix
 plus a prompt (S 1189, G 4) and slot decode at musicgen-medium's 24
 heads of 64 (G 1). Training: each kernel refuses an input that requires
@@ -896,6 +901,168 @@ def test_moe_step_makes_no_host_sync(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+# the MoE's pair ranks (kernels/moe_ranks.py): (kind, E, T, k) as in
+# tests/test_torch_moe.py's oracle cases, plus 262,144 pairs and
+# granite-moe-3b-a800m's E 40 / top-8 at a decode step and a prompt
+MOE_RANKS_CASES = ([("random", E, T, k) for E in (6, 40, 64)
+                    for T, k in ((1, 1), (17, 6), (64, 6), (2500, 6))]
+                   + [("one", 64, 64, 6), ("sparse", 40, 17, 6),
+                      ("sparse", 64, 2500, 6), ("random", 64, 65536, 4),
+                      ("random", 40, 8, 8), ("random", 40, 2048, 8)])
+
+
+def _ranks_idx(dev, kind, E, T, k):
+    """idx [T, k] int64: random experts, every pair to one (``one``), or
+    a quarter of the experts taking every pair (``sparse``)."""
+    g = torch.Generator().manual_seed(E * 100003 + T * k)
+    if kind == "one":
+        idx = torch.full((T, k), E // 2, dtype=torch.int64)
+    elif kind == "sparse":
+        idx = torch.arange(1, E, 4)[torch.randint(0, len(range(1, E, 4)),
+                                                  (T, k), generator=g)]
+    else:
+        idx = torch.randint(0, E, (T, k), generator=g)
+    return idx.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,E,T,k", MOE_RANKS_CASES)
+def test_moe_ranks_match_plain(cuda_device, kind, E, T, k):
+    """The kernel's ranks, group sizes and buffer rows equal the plain
+    version's bit for bit, without a capacity, at one that drops pairs and
+    at C = T; one launch a call."""
+    from repro_torch.kernels.moe_ranks import moe_ranks, moe_ranks_plain
+
+    idx = _ranks_idx(cuda_device, kind, E, T, k)
+    for C in (0, max(1, int(T * k * 1.25 / E)), T):
+        reset_launches()
+        got = moe_ranks(idx, E, C)
+        assert LAUNCHES["moe_ranks"] == 1
+        for a, b in zip(got, moe_ranks_plain(idx, E, C)):
+            if b is None:
+                assert a is None and C == 0
+            else:
+                assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_moe_ranks_refusals_and_wide_experts(cuda_device):
+    """int32 or strided experts are refused, and so are more than
+    MAX_EXPERTS experts on the card: no launch, and no plain fallback."""
+    from repro_torch.kernels.moe_ranks import MAX_EXPERTS, _launch, moe_ranks
+
+    idx = _ranks_idx(cuda_device, "random", 64, 17, 6)
+    for bad in (idx.int(), idx.t()):
+        with pytest.raises(ValueError, match="idx"):
+            _launch(bad, 64)
+    wide = _ranks_idx(cuda_device, "random", MAX_EXPERTS + 44, 17, 6)
+    reset_launches()
+    with pytest.raises(ValueError, match="experts"):
+        moe_ranks(wide, MAX_EXPERTS + 44, 5)
+    assert LAUNCHES["moe_ranks"] == 0
+
+
+def _moe_layer(dev, E: int = 64, k: int = 6):
+    """Reduced deepseek-moe-16b in bf16 with deepseek's 64 routed experts
+    top-6, and one MoE layer's weights drawn on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe, reduced
+
+    cfg = reduced(get_config("deepseek-moe-16b"))
+    cfg = dataclasses.replace(cfg, dtype="bfloat16", moe=dataclasses.replace(
+        cfg.moe, n_experts=E, top_k=k))
+    return cfg, moe.init_moe(cfg, torch.Generator(device=dev).manual_seed(0),
+                             ())
+
+
+@pytest.mark.cuda
+def test_moe_decode_dispatch_replays_the_eager_bits(cuda_device):
+    """The decode step's dispatch (the buffer at C = T over 64 rows) and
+    its ranks, captured once and replayed with new routings copied into
+    the static inputs, give the eager call's bits on each."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+
+    cfg, p = _moe_layer(cuda_device)
+    T, E, d = 64, cfg.moe.n_experts, cfg.d_model
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    routed = []
+    for _ in range(3):
+        x = torch.randn(T, d, generator=g, device=cuda_device).bfloat16()
+        w, idx, _ = moe._route(cfg, p, x)
+        routed.append((x, w, idx))
+    xs, ws, ids = (t.clone() for t in routed[0])
+
+    def step():
+        ranks = ops.moe_ranks(ids, E, T)
+        return (moe._moe_buffered(cfg, p, xs, ws, ids, T), *ranks)
+
+    def load(j):
+        for dst, src in zip((xs, ws, ids), routed[j]):
+            dst.copy_(src)
+
+    eager = []
+    for j in range(3):
+        load(j)
+        eager.append([t.clone() for t in step()])
+        assert all(torch.equal(a, b) for a, b in zip(step(), eager[j]))
+    load(0)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        step()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    for j in (1, 2, 0):
+        load(j)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs, eager[j])), j
+        plain = ops.moe_ranks(ids, E, T, force_ref=True)
+        assert all(torch.equal(a, b) for a, b in zip(outs[1:], plain))
+
+
+@pytest.mark.cuda
+def test_moe_ranks_engage_without_a_scan(cuda_device):
+    """Under the profiler, one captured decode step's MoE (64 rows) and
+    one 2,048-token capacity prefill launch the ranks kernel, once each,
+    and no ATen scan (the one-hot's int64 cumsum that it replaces)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import moe
+
+    cfg, p = _moe_layer(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    xd = torch.randn(64, 1, cfg.d_model, generator=g,
+                     device=cuda_device).bfloat16()
+    xp = torch.randn(1, 2048, cfg.d_model, generator=g,
+                     device=cuda_device).bfloat16()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        moe.moe_apply(cfg, p, xd)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        moe.moe_apply(cfg, p, xd)
+    moe.moe_apply(cfg, p, xp)                 # the prefill's shapes, warm
+    torch.cuda.synchronize()
+    reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        moe.moe_apply(cfg, p, xp)
+        torch.cuda.synchronize()
+    assert LAUNCHES["moe_ranks"] == 1         # the prefill; a replay adds none
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type.name == "CUDA"}
+    assert sum(n for name, n in kernels.items()
+               if "moe_pair_ranks" in name) == 2, kernels
+    assert not [name for name in kernels if "scan_outer_dim" in name]
 
 
 def _prefill_calls(dev):

@@ -295,6 +295,64 @@ def test_expert_ranks_follow_the_stable_sort():
     assert sizes.dtype == torch.int32
 
 
+def _stable_sort_ranks(flat: np.ndarray, E: int, C: int) -> tuple:
+    """The numpy oracle of the pair ranks: each pair's place in the stable
+    argsort of the flat experts less its expert's start, the bincount,
+    and the capacity dispatch's buffer rows."""
+    counts = np.bincount(flat, minlength=E)
+    order = np.argsort(flat, kind="stable")
+    pos = np.empty_like(flat)
+    starts = np.cumsum(counts) - counts
+    pos[order] = np.arange(flat.size) - starts[flat[order]]
+    slot = flat * C + pos
+    return (pos, counts, np.where(pos < C, slot, E * C),
+            np.where(pos < C, slot, flat[0] * C))
+
+
+def ranks_case(kind: str, E: int, T: int, k: int) -> np.ndarray:
+    """idx [T, k] int64 of a ranks case: ``random`` experts, ``one``
+    (every pair to expert E // 2), ``sparse`` (a quarter of the experts
+    get every pair, the rest none)."""
+    rng = np.random.default_rng(E * 100003 + T * k)
+    if kind == "one":
+        return np.full((T, k), E // 2, np.int64)
+    if kind == "sparse":
+        return rng.choice(np.arange(1, E, 4), size=(T, k)).astype(np.int64)
+    return rng.integers(0, E, (T, k)).astype(np.int64)
+
+
+#: (kind, E, T, k): T k of 1, 17 x 6, 384 (a 64-row decode step) and
+#: 15,000 (a 2,500-token prompt) pairs over 6, 40 and 64 experts; every
+#: pair to one expert; experts with no pair
+RANKS_CASES = ([("random", E, T, k) for E in (6, 40, 64)
+                for T, k in ((1, 1), (17, 6), (64, 6), (2500, 6))]
+               + [("one", 64, 64, 6), ("sparse", 40, 17, 6),
+                  ("sparse", 64, 2500, 6)])
+
+
+@pytest.mark.parametrize("kind,E,T,k", RANKS_CASES)
+def test_moe_ranks_plain_follows_the_stable_sort(kind, E, T, k):
+    """The ranks' plain version (the oracle the kernel is held to) against
+    the numpy stable argsort: ranks, group sizes, and the buffer rows at a
+    capacity that drops pairs and at C = T, which drops none."""
+    from repro_torch.kernels.moe_ranks import moe_ranks_plain
+
+    idx = ranks_case(kind, E, T, k)
+    flat = idx.reshape(-1)
+    for C in (max(1, int(T * k * 1.25 / E)), T):
+        want = _stable_sort_ranks(flat, E, C)
+        pos, sizes, rows_in, rows_out = moe_ranks_plain(
+            torch.from_numpy(idx), E, C)
+        for got, ref_ in zip((pos, sizes, rows_in, rows_out), want):
+            np.testing.assert_array_equal(got.numpy(), ref_)
+        assert pos.dtype == rows_in.dtype == torch.int64
+        assert sizes.dtype == torch.int32
+    pos0, sizes0, none_in, none_out = moe_ranks_plain(torch.from_numpy(idx),
+                                                      E)
+    assert torch.equal(pos0, pos) and torch.equal(sizes0, sizes)
+    assert none_in is None and none_out is None
+
+
 def test_grouped_ffn_ref_matches_reference():
     """The sorted-rows oracle, with an empty group in the middle and at the
     end."""
