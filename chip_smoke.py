@@ -21,8 +21,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    size x padded length, printed; starcoder2-3b's flash at S 4200 with
    its window of 4096 and G 12 and its slot decode over a ring of 4096,
    full and wrapping past slot 0; stablelm-3b's head width 80 at G 1 in
-   flash and slot decode; the FFN at T = 1 at olmo-1b's and stablelm-3b's
-   widths and at deepseek-moe-16b's shared experts (d 2048, d_ff 2816);
+   flash and slot decode; zamba2-7b-instruct's shared blocks (32 heads
+   of 224, scale 112^-0.5) in flash (S 16-128, and a group of 7 rows)
+   and paged decode (8 ragged slots, and its cell's 64 rows at the deep
+   mix's contexts), and its SSD scan with B/C in 2 groups (one launch a
+   group's 56 heads, against the plain version on B/C per head); the
+   FFN at T = 1 at olmo-1b's and stablelm-3b's widths and at
+   deepseek-moe-16b's shared experts (d 2048, d_ff 2816);
    the FFN over the MoE's expert buffers [E, C, d], deepseek-moe-16b's 64
    experts (d 2048, d_ff 1408, top-6) and granite-moe-3b-a800m's 40 (d
    1536, d_ff 512, top-8), at C = T = 1 and 8 (dropless decode) and at a
@@ -164,7 +169,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    a cut depth (rwkv6 4 of 24 layers; zamba2 one group of 6 plus its 3
    remaining layers), the step run eagerly: each row's first 8 decode
    logits within 1e-3 of the same prompt served alone through
-   DecodeEngine, and its tokens equal;
+   DecodeEngine, and its tokens equal. Then zamba2-7b-instruct (Zamba2
+   as published) in bf16 at full width and depth through the paged
+   continuous serve, launches counted from just before the stream: the
+   SSD scan 2 x 81 times an admission group, flash 13 times a group,
+   paged decode 13 times a replayed step, the FFN kernel never;
 12. the other dense ids, olmo-1b (LayerNorm without parameters),
    stablelm-3b (LayerNorm, head width 80) and starcoder2-3b (LayerNorm,
    GELU MLP, G 12, a sliding window of 4096): phase 4 in f32 at full
@@ -302,9 +311,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 Each top-level phase prints its seconds as it ends (phase_seconds), and
 a summary of them precedes the des_lanes line. ``--only kernels,
-vlm_audio,train,distribution`` (any subset) runs just those after the
-build: a development run that prints neither the summary below nor the
-ok line.
+vlm_audio,train,distribution,published_hybrid`` (any subset) runs just
+those after the build: a development run that prints neither the
+summary below nor the ok line.
 
 The des_lanes line, the card's name and power limit, then, as the line
 before the last, the kernels' JSON summary (with each kernel's
@@ -393,6 +402,13 @@ H, G, HD, D, DFF = 8, 2, 128, 1024, 3072
 RWKV_H, RWKV_HD = 32, 64
 SSD_H, SSD_HD, SSD_DS = 112, 64, 64
 Z_H, Z_HD, Z_D, Z_DFF = 32, 112, 3584, 14336
+# zamba2-7b-instruct's (Zamba2 as published): its shared blocks' 32 heads
+# of 224 (G 1) at the softmax scale (224 / 2)^-0.5, B/C in 2 groups of
+# the 112 SSD heads, and its benchmark cell's 64 paged rows at the deep
+# mix's contexts (prompts 16-128 plus budgets up to 1,617 and 8 answer
+# tokens: positions 16 to 1,752)
+ZI_H, ZI_HD, ZI_SCALE, ZI_GROUPS = 32, 224, 112 ** -0.5, 2
+ZI_ROWS, ZI_POS = 64, (16, 1752)
 SCAN_S = (18, 113, 128)   # the stream's shortest and longest prompt, 128
 QWEN3_BATCHED_LAYERS = 8  # depth of the continuous serve and the drains
 # qwen3-8b's: 8 kv heads of 128 with 4 query heads each, d 4096 / d_ff 12288
@@ -657,7 +673,7 @@ def kernel_cases(dev, flush):
                 "ctas": plan.ctas, "hd_pad": plan.hd_pad,
                 "block_k": plan.block_k}
 
-    def flash_case(dtype, S, H, G, HD, main, B=1, window=None):
+    def flash_case(dtype, S, H, G, HD, main, B=1, window=None, scale=None):
         qm = randn(B, S, H * G, HD, dtype=dtype)
         km = randn(B, S, H, HD, dtype=dtype)
         vm = randn(B, S, H, HD, dtype=dtype)
@@ -665,8 +681,8 @@ def kernel_cases(dev, flush):
         k, v = km.permute(0, 2, 1, 3), vm.permute(0, 2, 1, 3)
         fa = flash_attention.flash_attention
         plain = flash_attention.flash_attention_plain
-        got = fa(q, k, v, window=window)
-        want = plain(q, k, v, window=window)
+        got = fa(q, k, v, window=window, scale=scale)
+        want = plain(q, k, v, window=window, scale=scale)
         ql = qm.transpose(1, 2)
         kl = k.repeat_interleave(G, dim=1)
         vl = v.repeat_interleave(G, dim=1)
@@ -682,12 +698,15 @@ def kernel_cases(dev, flush):
         case = f"B={B} S={S} H={H} G={G} hd={HD}"
         if window is not None:
             case += f" window={window}"
+        if scale is not None:
+            case += f" scale={scale:.6g}"
         record("flash_attention", case, dtype,
                got, want, TOL[dtype], TOL_REASON[dtype],
-               lambda: fa(q, k, v, window=window),
-               lambda: plain(q, k, v, window=window),
+               lambda: fa(q, k, v, window=window, scale=scale),
+               lambda: plain(q, k, v, window=window, scale=scale),
                lambda: F.scaled_dot_product_attention(ql, kl, vl,
-                                                      attn_mask=mask),
+                                                      attn_mask=mask,
+                                                      scale=scale),
                nbytes, flops, main=main,
                fields=flash_fields(B, S, H, G, HD, dtype))
 
@@ -718,6 +737,15 @@ def kernel_cases(dev, flush):
         flash_case(dtype, MG_P + PREFIX_PROMPT, MG_H, 1, MG_HD, main=False)
     flash_case(torch.bfloat16, LL_P + PREFIX_PROMPT, LL_H, LL_G, HD,
                main=False, B=2)
+    # zamba2-7b-instruct's shared blocks at hd 224 (the tensor-core route
+    # pads it to 256) and scale 112^-0.5: one admission's prompt, the
+    # shortest, f32, and a group of 7 equal-length rows (the most one
+    # admission prefill of the published hybrid batches at full size)
+    for dtype, S, B in ((torch.bfloat16, max(prompt_lens), 1),
+                        (torch.bfloat16, 16, 1), (torch.float32, 37, 1),
+                        (torch.bfloat16, 128, 7)):
+        flash_case(dtype, S, ZI_H, 1, ZI_HD, main=False, B=B,
+                   scale=ZI_SCALE)
 
     # the distribution phase's prefill_32k on one card: qwen3-8b at B 2 x
     # S 32,768, G 4, and zamba2-7b's shared attention at G 1, hd 112. The
@@ -935,7 +963,7 @@ def kernel_cases(dev, flush):
     pda_plain = decode_attention.paged_decode_attention_plain
 
     def paged_case(dtype, pos_list, main, holes=(), retired=None, G=G, H=H,
-                   HD=HD):
+                   HD=HD, scale=None, P=P):
         B = len(pos_list)
         perm = torch.randperm(P, generator=torch.Generator().manual_seed(0))
         tables = torch.full((B, n_bt), P, dtype=torch.int32)
@@ -960,8 +988,8 @@ def kernel_cases(dev, flush):
         # model passes it: a view without the trash block
         pool = randn(2, P + 1, bs, H, HD, dtype=dtype)
         kp, vp = pool[0, :P], pool[1, :P]
-        got = pda(q, kp, vp, tables, pos)
-        want = pda_plain(q, kp, vp, tables, pos)
+        got = pda(q, kp, vp, tables, pos, scale=scale)
+        want = pda_plain(q, kp, vp, tables, pos, scale)
         keep = [b for b in range(B) if b != retired]
         if retired is not None and got.is_cuda:     # the plain version
             check(bool((got[retired] == 0).all()),  # averages a block
@@ -973,7 +1001,8 @@ def kernel_cases(dev, flush):
             kd = kp[gather].reshape(B, n_bt * bs, H, HD).transpose(1, 2)
             vd = vp[gather].reshape(B, n_bt * bs, H, HD).transpose(1, 2)
             return F.scaled_dot_product_attention(q, kd, vd, attn_mask=lmask,
-                                                  enable_gqa=True)
+                                                  enable_gqa=True,
+                                                  scale=scale)
         el = q.element_size()
         rows_read = int(vis.sum())
         nbytes = ((2 * B * H * G * HD + 2 * rows_read * H * HD) * el
@@ -985,11 +1014,13 @@ def kernel_cases(dev, flush):
         what = f"pos={list(pos_list)}"
         if holes or retired is not None:
             what += f" sentinel holes {list(holes)}, slot {retired} retired"
+        if scale is not None:
+            what += f" scale={scale:.6g}"
         record("paged_decode_attention",
                f"B={B} P={P} bs={bs} n_bt={n_bt} {what} H={H} G={G} "
                f"hd={HD}", dtype, got, want, tol, reason,
-               lambda: pda(q, kp, vp, tables, pos),
-               lambda: pda_plain(q, kp, vp, tables, pos), library,
+               lambda: pda(q, kp, vp, tables, pos, scale=scale),
+               lambda: pda_plain(q, kp, vp, tables, pos, scale), library,
                nbytes, flops, main=main,
                library="two calls: the k/v gather through the block table "
                        "(index) and scaled_dot_product_attention",
@@ -1001,6 +1032,14 @@ def kernel_cases(dev, flush):
                    holes=((3, 2), (6, 5), (6, 64)), retired=7)
         paged_case(dtype, POS, main=False, G=Q8_G)          # qwen3-8b's
         paged_case(dtype, POS, main=False, G=1, H=MG_H, HD=MG_HD)  # musicgen
+        # zamba2-7b-instruct's applications at hd 224 and scale 112^-0.5:
+        # the 8 ragged slots, and its cell's 64 rows spread over the deep
+        # mix's contexts on a pool of half their full tables (they take
+        # 3,580 of its 4,096 blocks)
+        zi = dict(main=False, G=1, H=ZI_H, HD=ZI_HD, scale=ZI_SCALE)
+        paged_case(dtype, POS, **zi)
+        paged_case(dtype, tuple(np.linspace(*ZI_POS, ZI_ROWS).astype(int)
+                                .tolist()), P=ZI_ROWS * n_bt // 2, **zi)
 
     # -- 4. fused SwiGLU FFN, E = 1: T = 1 at batch-1 decode, 8 at the
     # continuous engine's 8 slots, S at prefill, and the largest padded
@@ -1197,6 +1236,56 @@ def kernel_cases(dev, flush):
     # B 2 x S 32,768, the state carried over 512 of the kernels' chunks
     scan_cases(torch.bfloat16, DIST_BATCH["prefill_32k"], DIST_S,
                main=False, reps=DIST_KERNEL_REPS)
+
+    # zamba2-7b-instruct's grouped B/C: heads 0-55 read group 0's rows and
+    # 56-111 group 1's; the model launches the scan once a group over its
+    # heads' slice (mamba2._per_group), held here against the plain
+    # version over all 112 heads on B/C repeated per head
+    def grouped_ssd_case(dtype, B, S):
+        from repro_torch.kernels import LAUNCHES
+        from repro_torch.kernels import ops as kops
+        from repro_torch.models import mamba2
+        g = ZI_GROUPS
+        x = randn(B, S, SSD_H, SSD_HD, dtype=dtype)
+        dt = F.softplus(randn(B, S, SSD_H, dtype=torch.float32) - 2.0)
+        la = -dt
+        bm, cm = (randn(B, S, g * SSD_DS, dtype=dtype) for _ in range(2))
+        per_head = [t.unflatten(-1, (g, -1))
+                    .repeat_interleave(SSD_H // g, dim=2)
+                    .permute(0, 2, 1, 3) for t in (bm, cm)]
+        xh = x.permute(0, 2, 1, 3)
+        dth, lah = dt.permute(0, 2, 1), la.permute(0, 2, 1)
+
+        def run():
+            return mamba2._per_group(kops.ssd_scan, g, x, dt, la, bm, cm)
+
+        def plain():
+            return ssd_scan.ssd_scan_plain(xh, dth, lah, *per_head)
+        n0 = LAUNCHES["ssd_scan"]
+        got, gs = run()
+        check(LAUNCHES["ssd_scan"] - n0 == g,
+              f"grouped ssd_scan: {LAUNCHES['ssd_scan'] - n0} launches for "
+              f"{g} groups")
+        want, ws = plain()
+        el = x.element_size()
+        nbytes = B * (SSD_H * (2 * S * SSD_HD * el + 2 * S * 4
+                               + SSD_HD * SSD_DS * 4)
+                      + 2 * g * S * SSD_DS * el)
+        flops = 5 * B * SSD_H * S * SSD_HD * SSD_DS
+        record("ssd_scan", f"B={B} H={SSD_H} S={S} hd={SSD_HD} "
+               f"ds={SSD_DS} groups={g} (a launch a group of {SSD_H // g} "
+               "heads)", dtype, got.permute(0, 2, 1, 3), want,
+               scan_tol("ssd_scan", dtype, want), SCAN_REASON[dtype],
+               run, plain, None, nbytes, flops, main=False,
+               state=(gs, ws),
+               fields={**ssd_scan.ssd_plan(B, SSD_H // g, S, SSD_HD,
+                                           SSD_DS, dtype, sms).fields(),
+                       "launches": g})
+
+    for dtype, B, S in ((torch.bfloat16, 1, max(prompt_lens)),
+                        (torch.bfloat16, 1, 16), (torch.float32, 1, 37),
+                        (torch.bfloat16, 7, 128)):
+        grouped_ssd_case(dtype, B, S)
     ranks_rows, summary["moe_ranks"] = moe_ranks_cases(dev, flush)
     rows += ranks_rows
     return rows, summary
@@ -2038,7 +2127,11 @@ def continuous_serve_phase(dev, cfg, params, paged: bool = True) -> dict:
     once a layer a group and its decode kernel (paged or slot) once a
     layer a replayed step; the family's scan once a layer a group; the
     hybrid's flash once a shared-block application a group and slot
-    decode once an application a step."""
+    decode once an application a step; the published Zamba2 hybrid's
+    scan once a group of B/C a layer an admission group (2 x 81), flash
+    once an application a group and its decode kernel (paged or slot)
+    once an application a step (13 each), and no FFN kernel (its GeGLU
+    runs as cuBLAS matmuls)."""
     from repro_torch.core import paper_problem
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.obs import graph_hooks
@@ -2083,7 +2176,12 @@ def continuous_serve_phase(dev, cfg, params, paged: bool = True) -> dict:
           f"{cfg.arch_id}: an admission group exceeds "
           f"{engine._batch_rows()} rows {groups}")
     n_groups, steps = len(groups), graph["steps"]
-    if cfg.has_shared_attn:
+    if cfg.published_hybrid:
+        decode = "paged_decode_attention" if paged else "decode_attention"
+        expected = {"ssd_scan": cfg.ssm.n_groups * cfg.n_layers * n_groups,
+                    "flash_attention": cfg.n_apps * n_groups,
+                    decode: cfg.n_apps * steps, "fused_ffn": 0}
+    elif cfg.has_shared_attn:
         g = cfg.n_layers // cfg.attn_every
         expected = {"ssd_scan": cfg.n_layers * n_groups,
                     "flash_attention": g * n_groups,
@@ -2117,13 +2215,30 @@ def continuous_serve_phase(dev, cfg, params, paged: bool = True) -> dict:
         check(launches.get(name, 0) == n,
               f"{cfg.arch_id} continuous serve: {name} launched "
               f"{launches.get(name, 0)} times, expected {n}")
-    if cfg.backbone_kind == "attn" or cfg.has_shared_attn:
+    if ((cfg.backbone_kind == "attn" or cfg.has_shared_attn)
+            and not cfg.published_hybrid):
         check((launches.get("fused_ffn", 0) > 0) == cfg.gated_mlp,
               f"{cfg.arch_id} continuous serve: fused_ffn launched "
               f"{launches.get('fused_ffn', 0)} times")
     out["budgets"] = {c.rid: c.budget for c in srv.completed}
     out["stream"] = stream
     return out
+
+
+def published_hybrid_phase(dev) -> dict:
+    """zamba2-7b-instruct (Zamba2 as published) in bf16 at full width and
+    depth through the paged continuous serve (``continuous_serve_phase``:
+    launches counted from a reset just before the stream, each kernel's
+    count per layer, application and group checked); its launches under
+    the path's name."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = get_config("zamba2-7b-instruct")
+    params = init_params(cfg, seed=0, device=dev)
+    served = continuous_serve_phase(dev, cfg, params, paged=True)
+    return {"zamba2-7b-instruct continuous serve (paged)":
+            served["launches"]}
 
 
 def rolling_drain_phase(dev, cfg, params, served, n_blocks: int = 64,
@@ -4489,7 +4604,8 @@ REPLACES = {
 }
 
 
-ONLY_GROUPS = ("kernels", "vlm_audio", "train", "distribution")
+ONLY_GROUPS = ("kernels", "vlm_audio", "train", "distribution",
+               "published_hybrid")
 
 
 def main(argv=None) -> int:
@@ -4560,6 +4676,10 @@ def main(argv=None) -> int:
         if "train" in only:
             with timed("train"):
                 train_phase(dev)
+        if "published_hybrid" in only:
+            with timed("zamba2-7b-instruct"):
+                by_path.update(published_hybrid_phase(dev))
+                free()
         if "distribution" in only:
             with timed("distribution"):
                 cfg8 = get_config("qwen3-8b")
@@ -4645,6 +4765,9 @@ def main(argv=None) -> int:
             by_path[f"{arch} recurrent drain"] = recurrent_drain_phase(
                 dev, arch)["launches"]
             free()
+    with timed("zamba2-7b-instruct"):
+        by_path.update(published_hybrid_phase(dev))
+        free()
     # the other dense ids: LayerNorm without parameters (olmo-1b),
     # LayerNorm (stablelm-3b), LayerNorm, GELU MLP and a sliding window
     # (starcoder2-3b, also through the continuous engine)

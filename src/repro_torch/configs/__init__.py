@@ -11,6 +11,11 @@ parameters), ``stablelm-3b`` (LayerNorm) and ``starcoder2-3b``
 ``musicgen-medium`` (audio, 64 conditioning frames, LayerNorm, GELU
 MLP); both engines serve them all (the VLM and audio ids text-only on
 the continuous engine and the server, as in the JAX package).
+
+``PORT_IDS`` are the port's own, with no JAX counterpart:
+``zamba2-7b-instruct``, the hybrid as Zyphra publishes it (two
+alternating shared blocks over [h, embedding], grouped Mamba2), which
+the paged continuous engine serves.
 """
 from __future__ import annotations
 
@@ -23,13 +28,17 @@ ARCH_IDS = ("qwen3-0.6b", "qwen3-8b", "olmo-1b", "stablelm-3b",
 
 #: ids the JAX package registers that the port does not have yet: none
 NOT_YET_PORTED: tuple = ()
+#: the port's own ids, which the JAX package does not register
+PORT_IDS = ("zamba2-7b-instruct",)
 
-_MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
+_MODULES = {a: a.replace("-", "_").replace(".", "_")
+            for a in ARCH_IDS + PORT_IDS}
 
 
 def get_config(arch_id: str):
     if arch_id not in _MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; available: {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch_id!r}; available: "
+                       f"{ARCH_IDS + PORT_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.config()
 

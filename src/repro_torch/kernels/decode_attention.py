@@ -96,11 +96,16 @@ def split_plan(B: int, nkv: int, n_pos: int, hd: int, dtype,
     return SplitPlan(tile, n_tiles, min(n_tiles, want))
 
 
-def decode_attention_plain(q, k, v, valid) -> torch.Tensor:
+def _scale(hd: int, scale) -> float:
+    """The softmax scale: ``scale``, or ``hd ** -0.5`` where it is None."""
+    return 1.0 / hd ** 0.5 if scale is None else float(scale)
+
+
+def decode_attention_plain(q, k, v, valid, scale=None) -> torch.Tensor:
     """Plain PyTorch version with the kernel's arithmetic."""
     hd = q.shape[-1]
     s = torch.einsum("bhgd,bhcd->bhgc", q.float(), k.float()) \
-        * (1.0 / hd ** 0.5)
+        * _scale(hd, scale)
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
@@ -108,19 +113,20 @@ def decode_attention_plain(q, k, v, valid) -> torch.Tensor:
     return (out / l.clamp_min(1e-30)).to(q.dtype)
 
 
-def decode_attention(q, k, v, valid) -> torch.Tensor:
-    """One query token per (batch, head) over the slot cache.
+def decode_attention(q, k, v, valid, *, scale=None) -> torch.Tensor:
+    """One query token per (batch, head) over the slot cache; ``scale``
+    the softmax scale (None: ``hd ** -0.5``).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.
     """
     _cuda.refuse_dtensor("decode_attention", (q, k, v, valid))
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, valid)
-    return _launch(q, k, v, valid)
+        return decode_attention_plain(q, k, v, valid, scale)
+    return _launch(q, k, v, valid, scale)
 
 
-def _launch(q, k, v, valid):
+def _launch(q, k, v, valid, scale=None):
     name = "decode_attention"
     _cuda.refuse_grad(name, (q, k, v, valid))
     dev = _cuda.check(name, {"q": q, "k": k, "v": v})
@@ -144,7 +150,7 @@ def _launch(q, k, v, valid):
     st = _cuda.strides((k, (0, 1, 2)), (v, (0, 1, 2)))
     err = fn(_cuda.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
              v.data_ptr(), valid.data_ptr(), out.data_ptr(), st, B, H, G, C,
-             hd, plan.tile, plan.n_split, 1.0 / hd ** 0.5,
+             hd, plan.tile, plan.n_split, _scale(hd, scale),
              _cuda.stream_ptr(dev))
     _cuda.raise_on(name, err)
     LAUNCHES[name] += 1
@@ -178,18 +184,19 @@ def paged_gather(k_pool, v_pool, block_tables, pos):
 
 
 def paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
-                                 pos) -> torch.Tensor:
+                                 pos, scale=None) -> torch.Tensor:
     """Plain PyTorch version: gather the slot's blocks, mask, and attend
     with the slot kernel's arithmetic. A slot with no visible position
     averages V over the clipped block, as the TPU kernel does."""
     k, v, valid = paged_gather(k_pool, v_pool, block_tables, pos)
     return decode_attention_plain(q, k.permute(0, 2, 1, 3),
-                                  v.permute(0, 2, 1, 3), valid)
+                                  v.permute(0, 2, 1, 3), valid, scale)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables,
-                           pos) -> torch.Tensor:
-    """One query token per slot over a paged pool, through its block table.
+                           pos, *, scale=None) -> torch.Tensor:
+    """One query token per slot over a paged pool, through its block
+    table; ``scale`` the softmax scale (None: ``hd ** -0.5``).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.
@@ -198,11 +205,11 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables,
                          (q, k_pool, v_pool, block_tables, pos))
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
-                                            pos)
-    return _launch_paged(q, k_pool, v_pool, block_tables, pos)
+                                            pos, scale)
+    return _launch_paged(q, k_pool, v_pool, block_tables, pos, scale)
 
 
-def _launch_paged(q, k_pool, v_pool, block_tables, pos):
+def _launch_paged(q, k_pool, v_pool, block_tables, pos, scale=None):
     name = "paged_decode_attention"
     _cuda.refuse_grad(name, (q, k_pool, v_pool, block_tables, pos))
     dev = _cuda.check(name, {"q": q, "k_pool": k_pool, "v_pool": v_pool})
@@ -236,7 +243,7 @@ def _launch_paged(q, k_pool, v_pool, block_tables, pos):
     err = fn(_cuda.DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
              v_pool.data_ptr(), block_tables.data_ptr(), pos.data_ptr(),
              out.data_ptr(), st, B, H, G, P, bs, n_bt, hd, plan.tile,
-             plan.n_split, 1.0 / hd ** 0.5, _cuda.stream_ptr(dev))
+             plan.n_split, _scale(hd, scale), _cuda.stream_ptr(dev))
     _cuda.raise_on(name, err)
     LAUNCHES[name] += 1
     return out

@@ -127,12 +127,13 @@ def _scalar_smem(rows: int, hd: int) -> int:
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          window: int | None = None) -> torch.Tensor:
+                          window: int | None = None,
+                          scale: float | None = None) -> torch.Tensor:
     """Plain PyTorch version with the kernel's arithmetic (f32 scores and
     accumulation, weights rounded to the input dtype)."""
     S, hd = q.shape[-2], q.shape[-1]
     s = torch.einsum("bhgqd,bhkd->bhgqk", q.float(), k.float()) \
-        * (1.0 / hd ** 0.5)
+        * (1.0 / hd ** 0.5 if scale is None else scale)
     pos = torch.arange(S, device=q.device)
     mask = torch.ones(S, S, dtype=torch.bool, device=q.device)
     if causal:
@@ -147,8 +148,10 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    window: int | None = None) -> torch.Tensor:
+                    window: int | None = None,
+                    scale: float | None = None) -> torch.Tensor:
     """Causal (optionally windowed) prefill attention; see module docstring.
+    ``scale``: the softmax scale (None: ``hd ** -0.5``).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises. The kernel's output is a ``[B, H, G, S, hd]`` view of
@@ -156,11 +159,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """
     _cuda.refuse_dtensor("flash_attention", (q, k, v))
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    return _launch(q, k, v, causal, window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale)
+    return _launch(q, k, v, causal, window, scale)
 
 
-def _launch(q, k, v, causal, window):
+def _launch(q, k, v, causal, window, scale=None):
     name = "flash_attention"
     _cuda.refuse_grad(name, (q, k, v))
     dev = _cuda.check(name, {"q": q, "k": k, "v": v})
@@ -182,7 +186,7 @@ def _launch(q, k, v, causal, window):
     st = _cuda.strides(*dims)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), st, B,
             H, G, S, hd, int(causal), -1 if window is None else int(window),
-            1.0 / hd ** 0.5)
+            1.0 / hd ** 0.5 if scale is None else float(scale))
     if plan.route == "tensor_core":
         fn = _cuda.entry(name, "flash_attention_tc_fwd",
                          [_cuda.P] * 4 + [_cuda.LL_PTR] + [_cuda.I] * 7

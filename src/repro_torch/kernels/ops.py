@@ -36,9 +36,11 @@ Tensor = torch.Tensor
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
-                    window: int | None = None,
+                    window: int | None = None, scale: float | None = None,
                     force_ref: bool = False) -> Tensor:
-    """Model layout: q [B,S,nh,hd]; k,v [B,S,nkv,hd] -> [B,S,nh,hd]."""
+    """Model layout: q [B,S,nh,hd]; k,v [B,S,nkv,hd] -> [B,S,nh,hd].
+    ``scale``: the softmax scale (None: ``hd ** -0.5``), here and in the
+    two decode adapters."""
     B, S, nh, hd = q.shape
     nkv = k.shape[2]
     G = nh // nkv
@@ -50,16 +52,17 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         vf = v.permute(0, 2, 1, 3)[:, :, None].expand(B, nkv, G, S, hd) \
             .reshape(B * nkv * G, S, hd)
         out = ref.flash_attention_ref(qf, kf, vf, causal=causal,
-                                      window=window)
+                                      window=window, scale=scale)
         return out.reshape(B, nkv, G, S, hd).permute(0, 3, 1, 2, 4) \
             .reshape(B, S, nh, hd)
     qk = q.reshape(B, S, nkv, G, hd).permute(0, 2, 3, 1, 4)
     out = _flash(qk, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
-                 causal=causal, window=window)
+                 causal=causal, window=window, scale=scale)
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, nh, hd)
 
 
 def decode_attention(q: Tensor, k: Tensor, v: Tensor, valid: Tensor, *,
+                     scale: float | None = None,
                      force_ref: bool = False) -> Tensor:
     """q [B,1,nh,hd]; k,v [B,C,nkv,hd]; valid [B,C] -> [B,1,nh,hd]."""
     B, _, nh, hd = q.shape
@@ -69,15 +72,17 @@ def decode_attention(q: Tensor, k: Tensor, v: Tensor, valid: Tensor, *,
         kk = k.permute(0, 2, 1, 3).reshape(B * nkv, C, hd)
         vv = v.permute(0, 2, 1, 3).reshape(B * nkv, C, hd)
         vd = valid[:, None, :].expand(B, nkv, C).reshape(B * nkv, C)
-        out = ref.decode_attention_ref(q.reshape(B * nkv, G, hd), kk, vv, vd)
+        out = ref.decode_attention_ref(q.reshape(B * nkv, G, hd), kk, vv, vd,
+                                       scale=scale)
         return out.reshape(B, 1, nh, hd)
     out = _decode(q.reshape(B, nkv, G, hd), k.permute(0, 2, 1, 3),
-                  v.permute(0, 2, 1, 3), valid.contiguous())
+                  v.permute(0, 2, 1, 3), valid.contiguous(), scale=scale)
     return out.reshape(B, 1, nh, hd)
 
 
 def paged_decode_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                            block_tables: Tensor, pos: Tensor, *,
+                           scale: float | None = None,
                            force_ref: bool = False) -> Tensor:
     """Model layout: q [B,1,nh,hd]; k/v_pool [P,bs,nkv,hd];
     block_tables [B,n_bt] int32; pos [B] int32 -> [B,1,nh,hd].
@@ -96,9 +101,11 @@ def paged_decode_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
             q.reshape(B * nkv, G, hd),
             kk.permute(0, 2, 1, 3).reshape(B * nkv, C, hd),
             vv.permute(0, 2, 1, 3).reshape(B * nkv, C, hd),
-            valid[:, None, :].expand(B, nkv, C).reshape(B * nkv, C))
+            valid[:, None, :].expand(B, nkv, C).reshape(B * nkv, C),
+            scale=scale)
         return out.reshape(B, 1, nh, hd)
-    out = _paged(q.reshape(B, nkv, G, hd), k_pool, v_pool, block_tables, pos)
+    out = _paged(q.reshape(B, nkv, G, hd), k_pool, v_pool, block_tables, pos,
+                 scale=scale)
     return out.reshape(B, 1, nh, hd)
 
 

@@ -15,12 +15,18 @@ from ..compat import acc
 Tensor = torch.Tensor
 
 
+def _scaled(s: Tensor, hd: int, scale) -> Tensor:
+    """Scores times the softmax scale (None: divided by ``hd ** 0.5``)."""
+    return s / (hd ** 0.5) if scale is None else s * scale
+
+
 def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor,
                         causal: bool = True,
-                        window: int | None = None) -> Tensor:
+                        window: int | None = None,
+                        scale: float | None = None) -> Tensor:
     """q,k,v [BH, S, hd] (kv already broadcast to query heads)."""
     S, hd = q.shape[1], q.shape[-1]
-    s = torch.einsum("bqh,bkh->bqk", q, k).float() / (hd ** 0.5)
+    s = _scaled(torch.einsum("bqh,bkh->bqk", q, k).float(), hd, scale)
     pos = torch.arange(S, device=q.device)
     mask = torch.ones(S, S, dtype=torch.bool, device=q.device)
     if causal:
@@ -33,10 +39,10 @@ def flash_attention_ref(q: Tensor, k: Tensor, v: Tensor,
 
 
 def decode_attention_ref(q: Tensor, k: Tensor, v: Tensor,
-                         valid: Tensor) -> Tensor:
+                         valid: Tensor, scale: float | None = None) -> Tensor:
     """q [BH, G, hd]; k,v [BH, C, hd]; valid [BH, C] bool -> [BH, G, hd]."""
     hd = q.shape[-1]
-    s = torch.einsum("bgh,bch->bgc", q, k).float() / (hd ** 0.5)
+    s = _scaled(torch.einsum("bgh,bch->bgc", q, k).float(), hd, scale)
     s = torch.where(valid[:, None, :], s, torch.full_like(s, -torch.inf))
     w = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bgc,bch->bgh", w, v)

@@ -11,6 +11,7 @@ decode step (``serving/engine.py``).
     PYTHONPATH=src python -m repro_torch.launch.serve --real-engine --queries 8
     PYTHONPATH=src python -m repro_torch.launch.serve --real-engine \\
         --arch qwen3-8b --queries 8     # or any id of configs.ARCH_IDS
+                                        # or configs.PORT_IDS
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \\
         --real-engine --queries 3
 """
@@ -21,7 +22,7 @@ import dataclasses
 import json
 
 from ..compat import resolve_device
-from ..configs import ARCH_IDS, get_config
+from ..configs import ARCH_IDS, PORT_IDS, get_config
 from ..core import paper_problem
 from ..models import init_params, reduced
 from ..queueing_sim import ALL_DISCIPLINES, generate_stream, pk_prediction
@@ -37,7 +38,8 @@ def main(argv=None):
     ap.add_argument("--batch-size", type=int, default=1)
     ap.add_argument("--online", action="store_true")
     ap.add_argument("--real-engine", action="store_true")
-    ap.add_argument("--arch", default="qwen3-0.6b", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="qwen3-0.6b",
+                    choices=ARCH_IDS + PORT_IDS)
     ap.add_argument("--reduced", action="store_true",
                     help="2-layer, d_model 256, f32 variant (CPU tests)")
     ap.add_argument("--device", default="cuda")

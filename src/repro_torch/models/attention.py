@@ -24,6 +24,10 @@ over it with the slot decode kernel; an int8 paged pool is gathered
 through its block table first, so it never runs the paged kernel. No
 kernel reads int8, as in the JAX package.
 
+The softmax scale is ``hd ** -0.5`` unless the config gives its own
+(``attn_scale``: the published Zamba2's ``(hd / 2) ** -0.5``), which every
+path and kernel takes.
+
 Sliding window (``ModelConfig.sliding_window``): prefill masks keys more
 than ``window - 1`` positions back (the flash kernel's ``window``), and the
 slot cache, full precision or int8, is a ring of ``min(capacity,
@@ -214,7 +218,9 @@ def _sdpa(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor,
     B, S, nh, hd = q.shape
     nkv = k.shape[2]
     qg = split_dim(q, 2, (nkv, nh // nkv))
-    logits = torch.einsum("bskgh,btkh->bkgst", qg, k).float() / (hd ** 0.5)
+    logits = torch.einsum("bskgh,btkh->bkgst", qg, k).float()
+    logits = (logits / (hd ** 0.5) if cfg.attn_scale is None
+              else logits * cfg.attn_scale)
     masked = note_attention_scores(q, k, mask, pairs)
     logits = torch.where(mask[:, None, None], logits,
                          torch.full_like(logits, -1e30))
@@ -253,7 +259,8 @@ def attn_forward(cfg: ModelConfig, p: dict, x: Tensor,
                     causal_pairs(S, cfg.sliding_window))
     else:
         out = kops.flash_attention(q, k, v, causal=True,
-                                   window=cfg.sliding_window)
+                                   window=cfg.sliding_window,
+                                   scale=cfg.attn_scale)
     y = torch.matmul(merge_dims(out, 2, 3), p["wo"])
     return y, (k, v)
 
@@ -329,16 +336,19 @@ def cache_from_prefill(cfg: ModelConfig, k: Tensor, v: Tensor,
 
 def init_paged_cache(cfg: ModelConfig, batch: int, n_blocks: int,
                      block_size: int, n_bt: int, device,
-                     dtype=None) -> PagedKVCache:
+                     dtype=None, n_layers: Optional[int] = None
+                     ) -> PagedKVCache:
     """Zeroed paged pool (plus its trash block), all-sentinel block tables
-    and zero positions. ``n_bt`` is the block-table width, the per-slot
+    and zero positions, with ``n_layers`` layers (default
+    ``cfg.n_layers``; the published Zamba2's pool has one per shared
+    application). ``n_bt`` is the block-table width, the per-slot
     logical capacity in blocks. With an int8 KV cache the pools are int8
     and f32 scale pools of the same blocks (trash block included) come
     with them. A sliding window raises ``ValueError``: blocks are addressed
     by position, a ring by position modulo its capacity."""
     cfg.validate(paged=True)
-    shape = (cfg.n_layers, n_blocks + 1, block_size, cfg.n_kv_eff,
-             cfg.hd)
+    shape = (cfg.n_layers if n_layers is None else n_layers, n_blocks + 1,
+             block_size, cfg.n_kv_eff, cfg.hd)
     quant = cfg.kv_cache_dtype == "int8"
     dtype = torch.int8 if quant else (dtype or cfg.tdtype)
     scales = {}
@@ -381,7 +391,7 @@ def _decode_attend(cfg: ModelConfig, p: dict, q: Tensor, k: Tensor,
     if force_ref:
         out = _sdpa(cfg, q, k, v, valid[:, None, :])
     else:
-        out = kops.decode_attention(q, k, v, valid)
+        out = kops.decode_attention(q, k, v, valid, scale=cfg.attn_scale)
     return torch.matmul(merge_dims(out, 2, 3), p["wo"])
 
 
@@ -501,7 +511,8 @@ def attn_decode_paged(cfg: ModelConfig, p: dict, x: Tensor,
         getattr(pc, name)[layer, blk, off] = new[:, 0]
     if not (force_ref or quant):
         out = kops.paged_decode_attention(q, pc.k[layer, :P], pc.v[layer, :P],
-                                          pc.block_tables, pos)
+                                          pc.block_tables, pos,
+                                          scale=cfg.attn_scale)
         return torch.matmul(merge_dims(out, 2, 3), p["wo"])
     # the JAX package's gather path masks by position only: a sentinel
     # entry reads a clipped real block, hidden because it lies past pos

@@ -21,6 +21,13 @@ that reads them (the JAX package chooses the recurrent block by the arch
 id). ``SSMConfig.chunk`` is the chunk length of the Mamba2 reference math
 (``models/mamba2.py``), as in the JAX package; the SSD kernel chooses its
 own.
+
+The port's own :class:`Zamba2Config` (a ``hybrid`` of the published
+layout: shared blocks by ``hybrid_layer_ids``, two in turn over [h, x0],
+grouped Mamba2 through :class:`GroupedSSMConfig`) adds fields that the
+JAX package's configs do not have; the base classes carry their
+defaults as plain class attributes, so every other id's fields and
+``asdict`` are the JAX config's.
 """
 from __future__ import annotations
 
@@ -65,6 +72,20 @@ class SSMConfig:
     head_dim: int = 64            # SSD head dim
     chunk: int = 128              # the reference math's SSD chunk length
                                   # (the SSD kernel picks its own)
+    # the JAX package's Mamba2, whose fields these are not (plain class
+    # attributes, so that its configs compare field for field):
+    # :class:`GroupedSSMConfig` sets them
+    n_groups = 1                  # B/C groups, each shared by nh / n_groups
+                                  # heads, each with its own gated norm
+    dt_min = 0.0                  # floor of softplus(dt + dt_bias); 0: none
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedSSMConfig(SSMConfig):
+    """Mamba2 as published (``mamba_ngroups``, the plain path's floor
+    ``time_step_min`` on the step size)."""
+    n_groups: int = 1
+    dt_min: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +141,15 @@ class ModelConfig:
                                             # block) rather than single blocks
     source: str = ""
 
+    # The published Zamba2 layout's settings, which the JAX package's
+    # configs do not have: plain class attributes here (so that those
+    # configs compare field for field), fields of :class:`Zamba2Config`.
+    hybrid_layer_ids = ()       # Mamba2 layers a shared block precedes
+    num_mem_blocks = 1          # shared blocks, applied in turn
+    adapter_rank = 0            # per-application LoRA on the MLP's gate_up
+    attn_scale = None           # softmax scale; None: hd ** -0.5
+    norm_eps = 1e-6             # every RMS norm's and LayerNorm's eps
+
     @property
     def hd(self) -> int:
         if self.head_dim is not None:
@@ -167,6 +197,11 @@ class ModelConfig:
         """Whether every layer is an attention block (dense or MoE): K/V
         per position in every layer, no recurrent state."""
         return self.backbone_kind in ("attn", "moe")
+
+    @property
+    def published_hybrid(self) -> bool:
+        """The published Zamba2 layout (:class:`Zamba2Config`)."""
+        return bool(self.hybrid_layer_ids)
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding, blocks, head; norms left
@@ -248,13 +283,76 @@ class ModelConfig:
                              "window keeps the dense ring cache")
 
 
+@dataclasses.dataclass(frozen=True)
+class Zamba2Config(ModelConfig):
+    """The hybrid as Zamba2 publishes it (``transformers``'
+    ``modeling_zamba2``; arXiv:2411.15242, 2405.16712 eq. 6), beside the
+    JAX package's one-block layout. ``n_layers`` Mamba2 layers (grouped
+    B/C, :class:`GroupedSSMConfig`); before each layer of
+    ``hybrid_layer_ids``, application ``j`` of shared block ``j %
+    num_mem_blocks``:
+
+        u = RMSNorm([h, x0])               (2 d wide; x0 the embedding)
+        a = RMSNorm(Attn(u))               (q, k, v: 2 d -> n_heads x hd)
+        t = (GeGLU(a), exact GELU, with the application's
+             rank-``adapter_rank`` adapter on gate_up) @ linear_j
+        h = h + Mamba2(RMSNorm(h + t))
+
+    and every other layer ``h = h + Mamba2(RMSNorm(h))``. The block adds
+    no residual of its own; its output enters the Mamba2 layer's input.
+    ``d_ff`` is the MLP's width, ``head_dim`` the attention's (2 d /
+    n_heads), ``attn_scale`` its softmax scale."""
+    hybrid_layer_ids: tuple = ()
+    num_mem_blocks: int = 1
+    adapter_rank: int = 0
+    attn_scale: Optional[float] = None
+    norm_eps: float = 1e-5
+
+    @property
+    def n_apps(self) -> int:
+        """Applications of the shared blocks (each its own K/V)."""
+        return len(self.hybrid_layer_ids)
+
+    def param_count(self) -> int:
+        """Embedding (tied head), the Mamba2 layers, the shared blocks,
+        and each application's adapter and linear; norms and the Mamba2
+        layers' per-head scalars left out, as the base formula does."""
+        d, s = self.d_model, self.ssm
+        d_in = s.expand * d
+        nh, bc = d_in // s.head_dim, 2 * s.n_groups * s.d_state
+        n = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        n += self.n_layers * (d * (2 * d_in + bc + nh) + d_in * d
+                              + s.d_conv * (d_in + bc))
+        qkv = 2 * d * (self.n_heads + 2 * self.n_kv_heads) * self.hd
+        block = qkv + self.n_heads * self.hd * d + 3 * d * self.d_ff
+        n += self.num_mem_blocks * block
+        return n + self.n_apps * (self.adapter_rank * (d + 2 * self.d_ff)
+                                  + d * d)
+
+    def validate(self, paged: bool = False) -> None:
+        super().validate(paged)
+        ids = self.hybrid_layer_ids
+        if not ids or list(ids) != sorted(set(ids)) or ids[0] < 0 \
+                or ids[-1] >= self.n_layers:
+            raise ValueError("hybrid_layer_ids must be distinct, increasing "
+                             "layer indices")
+        if self.num_mem_blocks < 1:
+            raise ValueError("num_mem_blocks must be >= 1")
+        if self.ssm is None or (self.ssm.expand * self.d_model
+                                // self.ssm.head_dim) % self.ssm.n_groups:
+            raise ValueError("the B/C groups must divide the SSD heads")
+
+
 def reduced(cfg: ModelConfig, n_layers: int = 2,
             d_model: int = 256) -> ModelConfig:
     """Small variant of the same family for CPU tests (2 layers, d_model 256,
     f32, a sliding window cut to 64, at most 8 prefix embeddings, no
     activation checkpointing; a MoE at most 4 experts, top-2, one shared
     expert, capacity factor 8; an SSD chunk of 32), the same reduction as
-    ``repro.models.config.reduced``."""
+    ``repro.models.config.reduced``. The published Zamba2 layout keeps its
+    [h, x0] attention width (head_dim 2 d / n_heads, scale (hd / 2) **
+    -0.5), with shared blocks before layers 0 and 1 and adapters of rank
+    at most 8."""
     scale = d_model / cfg.d_model
     n_heads = max(1, min(cfg.n_heads, 4))
     n_kv = max(1, min(cfg.n_kv_heads, n_heads))
@@ -262,6 +360,12 @@ def reduced(cfg: ModelConfig, n_layers: int = 2,
         n_kv -= 1
     ssm = cfg.ssm and dataclasses.replace(
         cfg.ssm, d_state=min(cfg.ssm.d_state, 16), head_dim=32, chunk=32)
+    extra = {}
+    if cfg.published_hybrid:     # the shared blocks before layers 0 .. 1
+        extra = dict(hybrid_layer_ids=tuple(i for i in (0, 1)
+                                            if i < n_layers),
+                     adapter_rank=min(cfg.adapter_rank, 8),
+                     attn_scale=(d_model // n_heads) ** -0.5)
     rwkv = cfg.rwkv and dataclasses.replace(cfg.rwkv, head_dim=32,
                                             decay_lora=16)
     moe = cfg.moe and dataclasses.replace(
@@ -277,7 +381,7 @@ def reduced(cfg: ModelConfig, n_layers: int = 2,
         d_model=d_model,
         n_heads=n_heads,
         n_kv_heads=n_kv,
-        head_dim=d_model // n_heads,
+        head_dim=(2 if cfg.published_hybrid else 1) * d_model // n_heads,
         d_ff=max(64, int(cfg.d_ff * scale)),
         vocab_size=min(cfg.vocab_size, 512),
         sliding_window=(64 if cfg.sliding_window else None),
@@ -285,4 +389,5 @@ def reduced(cfg: ModelConfig, n_layers: int = 2,
         moe=moe, ssm=ssm, rwkv=rwkv,
         dtype="float32",
         remat=False,
+        **extra,
     )

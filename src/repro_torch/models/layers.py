@@ -1,6 +1,6 @@
 """Shared layers: the norms (RMS norm, LayerNorm, OLMo's LayerNorm without
-parameters), embedding, RoPE, the SwiGLU and GELU MLPs, lm_head (tied or
-untied)."""
+parameters), embedding, RoPE, the SwiGLU and GELU MLPs, the published
+Zamba2's adapted GeGLU, lm_head (tied or untied)."""
 from __future__ import annotations
 
 import torch
@@ -153,14 +153,17 @@ def init_norm(cfg: ModelConfig, lead: tuple, device) -> dict:
 
 
 def apply_norm(cfg: ModelConfig, p: dict, x: Tensor) -> Tensor:
-    """The config's norm over the last axis, in f32 with eps 1e-6."""
+    """The config's norm over the last axis (any width its scale has), in
+    f32 with the config's eps (1e-6 but for the published Zamba2's
+    1e-5)."""
     xf = acc(x)
+    eps = cfg.norm_eps
     if cfg.norm == "rmsnorm":
         y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True)
-                             + 1e-6)
+                             + eps)
         return (y * acc(p["scale"])).to(x.dtype)
     xc = xf - torch.mean(xf, dim=-1, keepdim=True)
-    y = xc * torch.rsqrt(torch.mean(xc * xc, dim=-1, keepdim=True) + 1e-6)
+    y = xc * torch.rsqrt(torch.mean(xc * xc, dim=-1, keepdim=True) + eps)
     if cfg.norm == "layernorm":
         y = y * acc(p["scale"]) + acc(p["bias"])
     return y.to(x.dtype)
@@ -297,3 +300,16 @@ def apply_mlp(cfg: ModelConfig, p: dict, x: Tensor,
     y = kops.fused_ffn(x.reshape(1, B * S, d), p["gate"][None],
                        p["up"][None], p["down"][None])
     return y.reshape(B, S, d)
+
+
+def apply_adapted_glu(cfg: ModelConfig, p: dict, lora_a: Tensor,
+                      lora_b: Tensor, x: Tensor) -> Tensor:
+    """The published Zamba2 MLP: ``gate_up [d, 2 f]`` plus the
+    application's adapter ``lora_a [d, r] @ lora_b [r, 2 f]`` (two skinny
+    products), the first half through the exact GELU (in f32) times the
+    second, then ``down``. PyTorch's matmuls."""
+    gu = torch.matmul(x, p["gate_up"]) \
+        + torch.matmul(torch.matmul(x, lora_a), lora_b)
+    g, u = gu.chunk(2, dim=-1)
+    return torch.matmul(torch.nn.functional.gelu(acc(g)).to(x.dtype) * u,
+                        p["down"])

@@ -17,6 +17,13 @@ by autograd; the kernel computes the same function. ``D x`` stays outside
 the scan. Decode is the single-step recurrence against a
 ``[B, nh, hd, ds]`` state. ``A_log``, ``D`` and ``dt_bias`` stay f32 in a
 bf16 model.
+
+Grouped B/C (``cfg.ssm.n_groups`` = g > 1, Zamba2 as published): the
+projections and the conv carry g rows of B and g of C (``[B_0 .. B_g-1,
+C_0 .. C_g-1]``), heads ``[j nh / g, (j + 1) nh / g)`` read group j's,
+the scan runs once per group over its heads, and the gated norm
+normalises each group's ``d_in / g`` channels on its own. A config's
+``dt_min`` floors the step size after the softplus.
 """
 from __future__ import annotations
 
@@ -38,7 +45,7 @@ class MambaCache(NamedTuple):
     axes and updates it in place."""
 
     conv_x: Tensor   # [..., B, d_conv - 1, d_in]  trailing conv inputs
-    conv_bc: Tensor  # [..., B, d_conv - 1, 2*ds]  trailing B/C conv inputs
+    conv_bc: Tensor  # [..., B, d_conv - 1, 2*g*ds]  trailing B/C conv inputs
     ssd: Tensor      # [..., B, nh, hd, ds] f32 recurrent state
     length: int      # tokens seen, host bookkeeping: no decode op reads
                      # it, and a replayed CUDA graph step does not advance it
@@ -51,7 +58,8 @@ def dims(cfg: ModelConfig):
 
 def init_mamba2(cfg: ModelConfig, gen: torch.Generator, lead: tuple) -> dict:
     d, K = cfg.d_model, cfg.ssm.d_conv
-    d_in, nh, hd, ds = dims(cfg)
+    d_in, nh, hd, _ = dims(cfg)
+    ds = cfg.ssm.n_groups * cfg.ssm.d_state     # B (or C) of every group
     dt, dev = cfg.tdtype, gen.device
 
     def full(shape, value, dtype=dt):
@@ -74,7 +82,7 @@ def init_mamba2(cfg: ModelConfig, gen: torch.Generator, lead: tuple) -> dict:
 
 
 def _split_proj(cfg: ModelConfig, p: dict, x: Tensor):
-    ds = cfg.ssm.d_state
+    ds = cfg.ssm.n_groups * cfg.ssm.d_state
     z = torch.matmul(x, p["z_proj"])
     xi = torch.matmul(x, p["x_proj"])
     bc = torch.matmul(x, p["bc_proj"])
@@ -92,8 +100,35 @@ def _conv_full(w: Tensor, b: Tensor, u: Tensor) -> Tensor:
 
 def _gated_norm(cfg: ModelConfig, p: dict, y: Tensor, z: Tensor) -> Tensor:
     yf = (y * torch.nn.functional.silu(z.float()).to(y.dtype)).float()
-    yf = yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + 1e-6)
-    return (yf * p["norm"].float()).to(y.dtype)
+    g = cfg.ssm.n_groups
+    if g > 1:                       # each group's channels on their own
+        yf = yf.unflatten(-1, (g, -1))
+    yf = yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True)
+                          + cfg.norm_eps)
+    return (yf.flatten(-2) if g > 1 else yf).mul(
+        p["norm"].float()).to(y.dtype)
+
+
+def _step_size(cfg: ModelConfig, p: dict, dt: Tensor) -> Tensor:
+    """softplus(dt + dt_bias) in f32, floored at the config's ``dt_min``."""
+    dt = torch.nn.functional.softplus(dt.float() + p["dt_bias"])
+    return dt.clamp(min=cfg.ssm.dt_min) if cfg.ssm.dt_min > 0 else dt
+
+
+def _per_group(fn, g: int, x: Tensor, dt: Tensor, la: Tensor, Bm: Tensor,
+               Cm: Tensor):
+    """``fn(x, dt, la, Bm, Cm)`` (a scan whose B/C rows ``[B, S, ds]`` are
+    shared by its heads) once per group over the group's heads, ``Bm`` /
+    ``Cm`` ``[B, S, g * ds]``: (y [B, S, nh, hd], s_final [B, nh, hd, ds])
+    with the groups' heads in order."""
+    if g == 1:
+        return fn(x, dt, la, Bm, Cm)
+    r, ds = x.shape[2] // g, Bm.shape[-1] // g
+    outs = [fn(x[:, :, j * r:(j + 1) * r], dt[..., j * r:(j + 1) * r],
+               la[..., j * r:(j + 1) * r], Bm[..., j * ds:(j + 1) * ds],
+               Cm[..., j * ds:(j + 1) * ds]) for j in range(g)]
+    return (torch.cat([o[0] for o in outs], dim=2),
+            torch.cat([o[1] for o in outs], dim=1))
 
 
 def _tail(u: Tensor, n: int) -> Tensor:
@@ -196,13 +231,15 @@ def mamba2_forward(cfg: ModelConfig, p: dict, x: Tensor,
                    force_ref: bool = False):
     """Full-sequence SSD. x [B,S,d] -> (y [B,S,d], MambaCache)."""
     B, S, _ = x.shape
-    d_in, nh, hd, ds = dims(cfg)
+    d_in, nh, hd, _ = dims(cfg)
+    g = cfg.ssm.n_groups
+    ds = g * cfg.ssm.d_state
     z, xi_raw, Bc, Cc, dt = _split_proj(cfg, p, x)
     bc_raw = torch.cat([Bc, Cc], dim=-1)
     xi = _conv_full(p["conv_x"], p["conv_b_x"], xi_raw)
     bc = _conv_full(p["conv_bc"], p["conv_b_bc"], bc_raw)
-    dt = torch.nn.functional.softplus(dt.float() + p["dt_bias"])  # [B,S,nh]
-    la = dt * -torch.exp(p["A_log"])                               # log decay
+    dt = _step_size(cfg, p, dt)                                    # [B,S,nh]
+    la = dt * -torch.exp(p["A_log"].float())                       # log decay
     xh = xi.reshape(B, S, nh, hd)
     args = (xh, dt, la, bc[..., :ds], bc[..., ds:])
     sharded = None
@@ -213,9 +250,10 @@ def mamba2_forward(cfg: ModelConfig, p: dict, x: Tensor,
     if sharded is not None:
         y, s_final = sharded
     elif force_ref:
-        y, s_final = ssd_chunked(*args, cfg.ssm.chunk)
-    else:
-        y, s_final = kops.ssd_scan(*args)
+        y, s_final = _per_group(
+            lambda *a: ssd_chunked(*a, cfg.ssm.chunk), g, *args)
+    else:                           # one kernel launch a group
+        y, s_final = _per_group(kops.ssd_scan, g, *args)
     y = acc(y) + p["D"][None, None, :, None] * acc(xh)
     y = _gated_norm(cfg, p, y.reshape(B, S, d_in).to(x.dtype), z)
     out = torch.matmul(y, p["out_proj"])
@@ -233,17 +271,22 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, device,
     return MambaCache(
         conv_x=torch.zeros(lead + (batch, K - 1, d_in), dtype=cfg.tdtype,
                            device=device),
-        conv_bc=torch.zeros(lead + (batch, K - 1, 2 * ds), dtype=cfg.tdtype,
-                            device=device),
+        conv_bc=torch.zeros(lead + (batch, K - 1,
+                                    2 * cfg.ssm.n_groups * ds),
+                            dtype=cfg.tdtype, device=device),
         ssd=torch.zeros(lead + (batch, nh, hd, ds), dtype=torch.float32,
                         device=device),
         length=0)
 
 
 def mamba2_decode(cfg: ModelConfig, p: dict, x: Tensor, cache: MambaCache):
-    """Single-token recurrence. x [B,1,d] -> (y [B,1,d], next MambaCache)."""
+    """Single-token recurrence. x [B,1,d] -> (y [B,1,d], next MambaCache).
+    The SSD state is updated in place: the returned cache's ``ssd`` is
+    ``cache.ssd`` itself."""
     B = x.shape[0]
-    d_in, nh, hd, ds = dims(cfg)
+    d_in, nh, hd, _ = dims(cfg)
+    g = cfg.ssm.n_groups
+    ds = g * cfg.ssm.d_state
     z, xi, Bc, Cc, dt = _split_proj(cfg, p, x)
     bc = torch.cat([Bc, Cc], dim=-1)
     win_x = torch.cat([cache.conv_x, xi], dim=1)         # [B,K,d_in]
@@ -253,12 +296,16 @@ def mamba2_decode(cfg: ModelConfig, p: dict, x: Tensor, cache: MambaCache):
     xi = torch.nn.functional.silu(cx.float()).to(x.dtype)
     bc_act = torch.nn.functional.silu(cbc.float()).to(x.dtype)
     Bc, Cc = bc_act[:, :ds], bc_act[:, ds:]
-    dt = torch.nn.functional.softplus(dt[:, 0].float() + p["dt_bias"])
-    a = torch.exp(dt * -torch.exp(p["A_log"]))          # [B,nh]
+    dt = _step_size(cfg, p, dt[:, 0])
+    a = torch.exp(dt * -torch.exp(p["A_log"].float()))  # [B,nh]
     xh = xi.reshape(B, nh, hd).float()
-    s_new = a[:, :, None, None] * cache.ssd + torch.einsum(
-        "bh,bs,bhp->bhps", dt, Bc.float(), xh)
-    y = torch.einsum("bs,bhps->bhp", Cc.float(), s_new)
+    # heads [j nh / g, (j + 1) nh / g) read group j's B and C; the state
+    # is updated in place (two passes over it), then read once
+    Bh, Ch = (t.float().reshape(B, g, 1, -1).expand(-1, -1, nh // g, -1)
+              .reshape(B, nh, -1) for t in (Bc, Cc))
+    s_new = cache.ssd.mul_(a[:, :, None, None]).addcmul_(
+        (dt[:, :, None] * xh)[..., None], Bh[:, :, None, :])
+    y = torch.matmul(s_new, Ch[..., None])[..., 0]
     y = y + p["D"][None, :, None] * xh
     y = _gated_norm(cfg, p, y.reshape(B, 1, d_in).to(x.dtype), z)
     out = torch.matmul(y, p["out_proj"])

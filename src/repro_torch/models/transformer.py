@@ -10,7 +10,13 @@ slot or paged, are the dense decoder's), ``"rwkv6"`` (the recurrent
 weight-shared attention+MLP block (``params["shared_attn"]``, unstacked),
 then the ``n_layers % attn_every`` remaining Mamba2 layers; each
 application of the shared block has its own KV cache (weights shared,
-activations not).
+activations not). The hybrid as Zamba2 publishes it
+(:class:`~.config.Zamba2Config`, ``models/zamba2.py``) places its shared
+applications by ``hybrid_layer_ids`` instead: before each such Mamba2
+layer, block ``j % num_mem_blocks`` reads ``[h, x0]`` and its output goes
+into that layer's input, ``h <- h + Mamba(RMSNorm(h + t))``. Its cache is
+``{"mamba": MambaCache [L, ...], "shared": K/V of the A applications}``:
+a stacked ``KVCache`` or a ``PagedKVCache`` pool of A layers.
 
 Parameters are a plain dict of tensors with the JAX package's tree layout:
 per-block leaves are stacked on a leading layer axis (``[L, ...]``), so
@@ -36,7 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..compat import DEFAULT_DEVICE, resolve_device
 from ..sharding.context import get_mesh
-from . import attention, mamba2, moe, rwkv6
+from . import attention, mamba2, moe, rwkv6, zamba2
 from .attention import PagedKVCache
 from .config import ModelConfig
 from .layers import (apply_mlp, apply_norm, embed_tokens, init_embed,
@@ -92,7 +98,9 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                               dev),
         "final_norm": init_norm(cfg, (), dev),
     }
-    if cfg.has_shared_attn:
+    if cfg.published_hybrid:
+        params["shared"], params["apps"] = zamba2.init_shared(cfg, gen, dev)
+    elif cfg.has_shared_attn:
         params["shared_attn"] = _init_block(cfg, "attn", gen, (), dev)
     return params
 
@@ -250,7 +258,10 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor,
         return x, seed
 
     cache = None
-    if not cfg.has_shared_attn:
+    if cfg.published_hybrid:
+        x, cache = _published_forward(cfg, params, x, positions, force_ref)
+        cache = cache if return_cache else None
+    elif not cfg.has_shared_attn:
         seeds = []
         for i in range(cfg.n_layers):
             x, seed = block(i, x)
@@ -295,6 +306,34 @@ def forward(cfg: ModelConfig, params: dict, tokens: Tensor,
     return ModelOutput(logits=logits, cache=cache, aux_loss=aux_total)
 
 
+def _apps_at(cfg: ModelConfig) -> dict:
+    """Mamba2 layer -> the shared application that precedes it."""
+    return {i: j for j, i in enumerate(cfg.hybrid_layer_ids)}
+
+
+def _published_forward(cfg: ModelConfig, params: dict, x0: Tensor,
+                       positions: Tensor, force_ref: bool) -> tuple:
+    """The published Zamba2 stack over the embedded sequence ``x0``:
+    (h before the final norm, the cache seeds ``{"mamba": MambaCache
+    [L, ...], "shared": (k, v) [A, B, S, nkv, hd]}``)."""
+    apps = _apps_at(cfg)
+    h, seeds, kvs = x0, [], []
+    for i in range(cfg.n_layers):
+        p = _layer_at(params["blocks"], i)
+        inp = h
+        if i in apps:
+            t, kv = zamba2.shared_forward(cfg, params, apps[i], h, x0,
+                                          positions, force_ref)
+            inp = h + t
+            kvs.append(kv)
+        y, seed = mamba2.mamba2_forward(cfg, p["mamba"],
+                                        apply_norm(cfg, p["ln1"], inp),
+                                        force_ref=force_ref)
+        h = h + y
+        seeds.append(seed)
+    return h, {"mamba": _stack(seeds), "shared": _stack(kvs)}
+
+
 def _seed_cache(cfg: ModelConfig, cache: dict, capacity: int) -> dict:
     """Prefill K/V ``[L, B, S, ..]`` -> fixed-capacity decode caches; the
     recurrent states are decode caches already."""
@@ -312,6 +351,11 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int,
     """Zeroed decode caches at position 0, in ``forward``'s layout."""
     dev = resolve_device(device)
     kind = cfg.backbone_kind
+    if cfg.published_hybrid:
+        return {"mamba": mamba2.init_mamba_cache(cfg, batch, dev,
+                                                 lead=(cfg.n_layers,)),
+                "shared": attention.init_cache(cfg, batch, capacity, dev,
+                                               n_layers=cfg.n_apps)}
     if not cfg.has_shared_attn:
         if cfg.has_attn_layers:
             return {"layers": attention.init_cache(cfg, batch, capacity,
@@ -345,13 +389,16 @@ def _attn_block_decode(cfg: ModelConfig, p: dict, x: Tensor, kv, pos,
 
 
 def _recurrent_decode(cfg: ModelConfig, kind: str, p: dict, x: Tensor,
-                      stacked, *idx) -> Tensor:
+                      stacked, *idx, inject: Optional[Tensor] = None
+                      ) -> Tensor:
     """Recurrent block step; the new state is copied in place into the
-    stacked cache leaves at ``idx``."""
+    stacked cache leaves at ``idx``. ``inject`` (the published Zamba2's
+    shared output) is added to a Mamba2 layer's input, not to ``x``."""
     c = _layer_at(stacked, *idx)
     if kind == "mamba2":
+        inp = x if inject is None else x + inject
         h, new = mamba2.mamba2_decode(cfg, p["mamba"],
-                                      apply_norm(cfg, p["ln1"], x), c)
+                                      apply_norm(cfg, p["ln1"], inp), c)
         x = x + h
     else:
         x1 = x[:, 0, :]
@@ -402,7 +449,9 @@ def decode_step(cfg: ModelConfig, params: dict, token: Tensor, cache: dict,
     """
     x = embed_tokens(cfg, params["embed"], token)
     blocks, kind = params["blocks"], cfg.backbone_kind
-    if not cfg.has_shared_attn:
+    if cfg.published_hybrid:
+        x, new_cache = _published_decode(cfg, params, x, cache, force_ref)
+    elif not cfg.has_shared_attn:
         layers = cache["layers"]
         for i in range(cfg.n_layers):
             p = _layer_at(blocks, i)
@@ -432,3 +481,41 @@ def decode_step(cfg: ModelConfig, params: dict, token: Tensor, cache: dict,
     x = apply_norm(cfg, params["final_norm"], x)
     logits = lm_head(cfg, params["embed"], x)
     return ModelOutput(logits=logits, cache=new_cache)
+
+
+def _published_decode(cfg: ModelConfig, params: dict, x0: Tensor,
+                      cache: dict, force_ref: bool) -> tuple:
+    """One token through the published Zamba2 stack: the Mamba2 states
+    copied in place, each application's K/V written into its layer of
+    ``cache["shared"]`` (slot cache or paged pool); the phase marks of
+    :func:`zamba2.timing_phases` at each switch between the two."""
+    apps = _apps_at(cfg)
+    mamba, shared = cache["mamba"], cache["shared"]
+    h = x0
+    zamba2.mark("mamba")
+    for i in range(cfg.n_layers):
+        inject = None
+        if i in apps:
+            zamba2.mark("shared")
+            inject = zamba2.shared_decode(cfg, params, apps[i], h, x0,
+                                          shared, force_ref)
+            zamba2.mark("mamba")
+        h = _recurrent_decode(cfg, "mamba2", _layer_at(params["blocks"], i),
+                              h, mamba, i, inject=inject)
+    zamba2.mark("end")
+    return h, {"mamba": _advance(mamba), "shared": _advance(shared)}
+
+
+def init_paged_decode_cache(cfg: ModelConfig, batch: int, n_blocks: int,
+                            block_size: int, n_bt: int, device) -> dict:
+    """The paged continuous engine's cache: the dense stack's pool under
+    ``"layers"``, or for the published Zamba2 the applications' pool under
+    ``"shared"`` beside every layer's per-row Mamba2 state."""
+    if not cfg.published_hybrid:
+        return {"layers": attention.init_paged_cache(
+            cfg, batch, n_blocks, block_size, n_bt, device)}
+    return {"mamba": mamba2.init_mamba_cache(cfg, batch, device,
+                                             lead=(cfg.n_layers,)),
+            "shared": attention.init_paged_cache(
+                cfg, batch, n_blocks, block_size, n_bt, device,
+                n_layers=cfg.n_apps)}

@@ -86,6 +86,19 @@ the prefill and inside the captured step only when the engine holds a
 tracer; without one no event, count buffer, stats span or extra read
 exists, and the captured step is the same.
 
+The published Zamba2 hybrid (``cfg.published_hybrid``) keeps two kinds of
+state side by side: every layer's Mamba2 state in per-slot rows, and its
+shared applications' K/V in the paged pool (or, slot mode, in per-slot
+rows of the cache's capacity). Traced, its admissions add
+``continuous.admit.insert`` (inside ``continuous.admit``, around the
+insert of both kinds of state), and ``continuous.chunk.stats`` gives
+``kv_blocks`` (pool blocks in use; paged only) and ``state_rows`` (the
+rows whose recurrent state a step updates: all ``max_slots``); on a CUDA
+device the captured step records external timing events at each switch
+between the Mamba2 layers and the shared applications
+(``models.zamba2.timing_phases``), and a replayed chunk's stats give its
+last step's ``mamba_ms`` and ``shared_ms``.
+
 ``faults`` (``faults.FaultInjector``) gets ``on_decode_step(self)`` at
 the top of every ``step`` and ``step_chunk``, even while idle, so a
 fault such as ``PoolPressure`` reserves and returns pool blocks on the
@@ -112,7 +125,9 @@ per-row position), so a refilled slot keeps nothing of the request it
 held. The recurrent states carry no position, and the decode step copies
 them in place, so one captured step serves every admission. These
 backbones refuse the paged pool (``ValueError``), as the JAX package's
-do; the dense and MoE backbones take it.
+do; the dense and MoE backbones take it, and so does the published
+Zamba2 hybrid, whose paged pool holds its shared applications' K/V while
+its Mamba2 states stay in rows (``models.init_paged_decode_cache``).
 """
 from __future__ import annotations
 
@@ -123,9 +138,10 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..models import decode_step, fold_sample, forward, init_decode_cache
-from ..models import moe
-from ..models.attention import (KVCache, QuantKVCache, init_paged_cache,
+from ..models import (decode_step, fold_sample, forward, init_decode_cache,
+                      init_paged_decode_cache)
+from ..models import moe, zamba2
+from ..models.attention import (KVCache, PagedKVCache, QuantKVCache,
                                 kv_fields, seed_slots)
 from ..models.config import ModelConfig
 from ..obs import graph_hooks
@@ -219,6 +235,10 @@ class BlockAllocator:
 
 
 class ContinuousBatchingEngine:
+    #: recurrent state one admission prefill of the published Zamba2
+    #: hybrid may stack for its rows (``_batch_rows``)
+    ADMIT_STATE_BYTES = 1 << 30
+
     def __init__(self, cfg: ModelConfig, params: dict, max_slots: int = 4,
                  capacity: int = 512, chunk: int = 8, paged: bool = False,
                  block_size: int = 16, n_blocks: Optional[int] = None,
@@ -244,7 +264,8 @@ class ContinuousBatchingEngine:
             if not self._can_page():
                 raise ValueError(
                     "paged KV requires a full-attention backbone (attn or "
-                    "moe, no sliding window, no shared attention)")
+                    "moe, no sliding window, no shared attention) or the "
+                    "published Zamba2 hybrid")
             self.block_size = block_size
             self.n_bt = max(1, math.ceil(capacity / block_size))
             self.capacity = self.n_bt * block_size
@@ -257,9 +278,9 @@ class ContinuousBatchingEngine:
             self._tables_host = np.full((max_slots, self.n_bt),
                                         self.n_blocks, np.int32)
             self._tables_dirty = False
-            self.cache = {"layers": init_paged_cache(
+            self.cache = init_paged_decode_cache(
                 cfg, max_slots, self.n_blocks, block_size, self.n_bt,
-                self.device)}
+                self.device)
         else:
             self.block_size = None
             self.n_blocks = None
@@ -286,25 +307,42 @@ class ContinuousBatchingEngine:
         self._events: dict = {}
         self._routing: dict = {}
         self._prefill_counts = None
+        self._phases = (zamba2.PhaseEvents()
+                        if tracer is not None and cfg.published_hybrid
+                        and self.device.type == "cuda" else None)
 
     # ------------------------------------------------------------ internals
     def _can_page(self) -> bool:
         """Paged decode covers the full-attention backbones (dense and
-        MoE): K/V per position, blocks addressed by position. Ring
-        buffers (sliding window) and recurrent or hybrid state stay in
-        slots."""
-        return (self.cfg.has_attn_layers
-                and not self.cfg.has_shared_attn
+        MoE): K/V per position, blocks addressed by position; and the
+        published Zamba2 hybrid, whose applications' K/V page while its
+        Mamba2 states stay in rows. Ring buffers (sliding window), the
+        recurrent stack and the JAX package's hybrid stay in slots."""
+        return ((self.cfg.has_attn_layers or self.cfg.published_hybrid)
                 and self.cfg.sliding_window is None)
+
+    @property
+    def _pool(self) -> PagedKVCache:
+        """The paged pool of the cache (paged mode)."""
+        return self.cache["shared" if self.cfg.published_hybrid
+                          else "layers"]
 
     def _batch_rows(self) -> int:
         """How many requests one admission prefill may batch exactly:
         one for capacity-dispatch MoE, whose rows (and pads) compete for
         the experts' capacity slots, so that a request's tokens are those
-        it gets served alone; else every slot."""
+        it gets served alone; for the published Zamba2 hybrid as many as
+        fit ``ADMIT_STATE_BYTES`` of recurrent state, which the prefill
+        stacks for its rows beside the engine's own (full size: ~150 MB a
+        row, so 7 rows); else every slot."""
         if (self.cfg.backbone_kind == "moe"
                 and self.cfg.moe.impl == "capacity"):
             return 1
+        if self.cfg.published_hybrid:
+            row = sum(t.numel() * t.element_size()
+                      for t in self.cache["mamba"]
+                      if isinstance(t, torch.Tensor)) // self.max_slots
+            return max(1, min(self.max_slots, self.ADMIT_STATE_BYTES // row))
         return self.max_slots
 
     def _can_pad_batch(self) -> bool:
@@ -333,8 +371,12 @@ class ContinuousBatchingEngine:
         token, rids, gidx = self._inputs
         routing = self._routing.get(chunk)
 
+        phases = self._phases
+
         def step():
-            with moe.count_routing(routing):
+            if phases is not None:
+                phases.rewind()
+            with moe.count_routing(routing), zamba2.timing_phases(phases):
                 res = decode_step(self.cfg, self.params, token[:, None],
                                   self.cache)
             nxt = self._next_tokens(res.logits[:, 0], rids, gidx)
@@ -364,14 +406,18 @@ class ContinuousBatchingEngine:
 
     def _insert(self, seeds: dict, slot_idx, lengths: torch.Tensor) -> None:
         """Write k prefilled rows (``forward``'s cache seeds, batch k) into
-        the slot cache at ``slot_idx``, every state leaf of each row:
-        K/V through :meth:`_insert_kv`, a recurrent state's leaves (stacked
-        on the layer axis, the hybrid's grouped stack on two) whole.
-        ``lengths`` [k] are the rows' true prompt lengths."""
+        the cache at ``slot_idx``, every state leaf of each row: K/V
+        through :meth:`_insert_kv` (slot cache) or :meth:`_insert_paged`
+        (the pool), a recurrent state's leaves (stacked on the layer axis,
+        the hybrid's grouped stack on two) whole. ``lengths`` [k] are the
+        rows' true prompt lengths."""
         for part, dst in self.cache.items():
             if dst is None:
                 continue
             src = seeds[part]
+            if isinstance(dst, PagedKVCache):
+                self._insert_paged(dst, *src, slot_idx, lengths)
+                continue
             if isinstance(dst, (KVCache, QuantKVCache)):
                 self._insert_kv(dst, *src, slot_idx, lengths)
                 continue
@@ -398,13 +444,13 @@ class ContinuousBatchingEngine:
             buf[:, slot_idx, S:] = 1e-8 if name.endswith("scale") else 0
         kv.length[slot_idx] = lengths
 
-    def _insert_paged(self, k: torch.Tensor, v: torch.Tensor, slot_idx,
+    def _insert_paged(self, pc: PagedKVCache, k: torch.Tensor,
+                      v: torch.Tensor, slot_idx,
                       lengths: torch.Tensor) -> None:
-        """Scatter k prefilled rows into the paged pool (an int8 pool: their
-        codes and, beside them, their scales). Logical position p of row r
-        lands at ``pool[:, table[slot, p // bs], p % bs]``; pad positions
-        (p >= lengths[r]) land on the trash block."""
-        pc = self.cache["layers"]
+        """Scatter k prefilled rows into the paged pool ``pc`` (an int8
+        pool: their codes and, beside them, their scales). Logical
+        position p of row r lands at ``pool[:, table[slot, p // bs], p %
+        bs]``; pad positions (p >= lengths[r]) land on the trash block."""
         P, bs = pc.n_blocks, pc.block_size
         S = k.shape[2]
         ppos = torch.arange(S, device=self.device)
@@ -455,7 +501,7 @@ class ContinuousBatchingEngine:
     def _sync_tables(self) -> None:
         """Copy the host block table to the device if it changed."""
         if self._tables_dirty:
-            self.cache["layers"].block_tables.copy_(
+            self._pool.block_tables.copy_(
                 torch.from_numpy(self._tables_host))
             self._tables_dirty = False
 
@@ -516,7 +562,7 @@ class ContinuousBatchingEngine:
                 by_len.setdefault(len(item[1][1]), []).append(item)
             groups = list(by_len.values())
         rows = self._batch_rows()
-        if rows < max(len(g) for g in groups):   # capacity-dispatch MoE
+        if rows < max(len(g) for g in groups):   # capacity MoE, Zamba2
             groups = [g[i:i + rows] for g in groups
                       for i in range(0, len(g), rows)]
         for group in groups:
@@ -603,9 +649,9 @@ class ContinuousBatchingEngine:
         firsts = self._next_tokens(
             last, rids, torch.zeros_like(lengths_d))   # first token: g = 0
         lengths_d = lengths_d.to(torch.int32)
-        if self.paged:
-            self._insert_paged(*out.cache["layers"], slot_idx, lengths_d)
-        else:
+        tr = (self.tracer if self.tracer is not None
+              and self.cfg.published_hybrid else NULL_TRACER)
+        with tr.span("continuous.admit.insert", cat="engine"):
             self._insert(out.cache, slot_idx, lengths_d)
         return firsts
 
@@ -743,6 +789,15 @@ class ContinuousBatchingEngine:
             out["first_step_ms"] = events[0].elapsed_time(events[1])
             out["step_ms"] = (events[1].elapsed_time(events[chunk])
                               / (chunk - 1))
+            times = (self._phases.times_ms() if self._phases is not None
+                     else None)
+            if times is not None:
+                out.update(mamba_ms=times.get("mamba", 0.0),
+                           shared_ms=times.get("shared", 0.0))
+        if self.cfg.published_hybrid:
+            if self.paged:
+                out["kv_blocks"] = self.allocator.n_allocated
+            out["state_rows"] = self.max_slots
         routing = self._routing.get(chunk)
         if routing is not None:
             counts = graph_hooks.to_host(routing.counts, "continuous.routing")
